@@ -5,11 +5,16 @@ Run from the repository root:  python3 chip_smoke.py
 
 Each phase prints one JSON line:
   build    nvcc build of every kernel (time; registers and shared memory per kernel)
-  kernels  each CUDA kernel against its plain PyTorch version at the main path's
-           shapes (max abs error beside the tolerance; kernel, plain and bound ms)
+  kernels  each CUDA kernel against its plain PyTorch version at the shapes its
+           path gives it (max abs error beside the tolerance; kernel, plain,
+           bound and, where one PyTorch call computes the same function,
+           library ms)
   serve    a full-width COSTREAM model (5 metrics x 3 members, hidden 64,
-           use_pallas=True) answering estimate / score / optimize requests,
-           each answer held against the same estimator on the CPU
+           use_pallas=True) answering estimate / score / optimize requests and
+           the cross-query estimate_many / score_many, each answer held against
+           the card's per-request answers and the same estimator on the CPU;
+           every path runs with the launch counters set to 0 just before it and
+           read just after, and fails if one of its kernels did not launch
 then the kernel summary line, the card's name and power limit, and the status
 line.  Any failure exits nonzero; so does a machine without a CUDA device, or
 a directory that holds this script and nothing else of the repository.
@@ -26,6 +31,12 @@ PEAK_FP32_FLOPS = 67e12  # H100 SXM, fp32 outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12  # H100 SXM HBM3
 TOL = 1e-5  # rtol = atol for kernel against plain version
 SERVE_RTOL = 1e-4
+# What each path is asked, and how often each kernel is timed.  Smaller values
+# (with DEVICE = "cpu" and the counters stubbed) give a quick dry run of the
+# script's control flow; the numbers it prints are then meaningless.
+SIZES = {"traces": 4096, "many_batch": 512, "drain_structures": 16, "drain_candidates": 256,
+         "score_candidates": 1024, "placed_candidates": 256, "timing_reps": 20}
+DEVICE = "cuda"
 
 
 def emit(obj) -> None:
@@ -51,11 +62,14 @@ def main() -> int:
     from repro_torch.core import gnn
     from repro_torch.core.graph import (
         SLOT_RANGES,
+        JointGraph,
         batch_graphs,
         build_a_place_batch,
         build_graph,
         build_graph_skeleton,
+        exact_banding,
         query_static,
+        skeleton_cache_key,
     )
     from repro_torch.core.model import (
         ALL_METRICS,
@@ -69,15 +83,19 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.banked_mlp import ops as bank_ops
     from repro_torch.kernels.banked_mlp.ref import banked_mlp_slotted_ref
+    from repro_torch.kernels.mp_sweep import ops as sweep_ops
+    from repro_torch.kernels.mp_sweep.ref import mp_sweep_ref
     from repro_torch.kernels.mp_update import ops as mp_ops
     from repro_torch.kernels.mp_update.ref import mp_update_ref
+    from repro_torch.kernels.seg_gather import ops as seg_ops
+    from repro_torch.kernels.seg_gather.ref import gather_sum_ref, segment_sum_ref
     from repro_torch.placement.enumerate import sample_assignment_matrix
     from repro_torch.serve.estimator import CostEstimator, graphs_to_device
     from repro_torch.serve.stacking import stack_metric_models
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
 
     # -- 1. build ------------------------------------------------------------------
     t0 = time.perf_counter()
@@ -99,7 +117,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     workload = WorkloadGenerator(seed=0)
-    traces = workload.corpus(4096)
+    traces = workload.corpus(SIZES["traces"])
     t_corpus = time.perf_counter() - t0
     t0 = time.perf_counter()
     host_batch = batch_graphs([build_graph(t.query, t.cluster, t.placement) for t in traces])
@@ -107,9 +125,21 @@ def main() -> int:
     g = graphs_to_device(host_batch, dev)
     B, N = host_batch.op_x.shape[:2]
     W = host_batch.hw_x.shape[1]
+    # estimate_many's request: the same 4096 graphs as 8 batches of 512
+    mb = SIZES["many_batch"]
+    many_batches = [JointGraph(*[np.asarray(x)[i : i + mb] for x in host_batch]) for i in range(0, B, mb)]
+    # score_many's request: 16 distinct (query, cluster) structures, up to 256 candidates each
+    drain_gen = WorkloadGenerator(seed=1)
+    drain = []
+    for i in range(SIZES["drain_structures"]):
+        q = drain_gen.query(kind=("linear", "two_way", "three_way")[i % 3], name=f"d{i}")
+        c = drain_gen.cluster(3 + i % 6)
+        drain.append((q, c, sample_assignment_matrix(q, c, SIZES["drain_candidates"], np.random.default_rng(200 + i))))
+    if len({skeleton_cache_key(q, c) for q, c, _ in drain}) != len(drain):
+        raise AssertionError("score_many drain: the structures are not distinct")
 
     # -- 2. kernels against their plain versions -------------------------------------
-    def cuda_ms(fn, reps=20, warmup=3):
+    def cuda_ms(fn, reps=SIZES["timing_reps"], warmup=3):
         for _ in range(warmup):
             fn()
         torch.cuda.synchronize()
@@ -121,19 +151,27 @@ def main() -> int:
         end.synchronize()
         return start.elapsed_time(end) / reps
 
-    def compare(name, case, kernel, plain, flops, nbytes):
+    def compare(name, case, kernel, plain, flops, nbytes, library=None):
         got = kernel()
+        again = kernel()
         torch.cuda.synchronize()
         want = plain()
         err = float((got - want).abs().max())
         ok = bool(torch.allclose(got, want, rtol=TOL, atol=TOL))
+        lib_err = None if library is None else float((library() - want).abs().max())
         b_ms, b_by = bound(flops, nbytes)
         row = {"phase": "kernels", "kernel": name, "case": case, "shape": list(got.shape),
-               "max_abs_err": err, "tol": TOL, "ok": ok, "ms": cuda_ms(kernel), "plain_ms": cuda_ms(plain),
-               "bound_ms": b_ms, "bound_by": b_by, "flops": flops, "bytes": nbytes}
+               "max_abs_err": err, "tol": TOL, "ok": ok, "deterministic": bool(torch.equal(got, again)),
+               "ms": cuda_ms(kernel), "plain_ms": cuda_ms(plain), "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": None if library is None else cuda_ms(library), "library_max_abs_err": lib_err,
+               "flops": flops, "bytes": nbytes}
         emit(row)
         if not ok:
             raise AssertionError(f"{name} {case}: kernel disagrees with its plain version (max abs err {err})")
+        if lib_err is not None and lib_err > TOL * (1 + float(want.abs().max())):
+            raise AssertionError(f"{name} {case}: the library call disagrees with the plain version ({lib_err})")
+        if not row["deterministic"]:
+            raise AssertionError(f"{name} {case}: two launches on the same inputs differ")
         return row
 
     def bank_case(case, params, x, ranges, shared_input):
@@ -160,6 +198,9 @@ def main() -> int:
         bank_case("op_upd, F=128, T=5", stacked["op_upd"], x_upd, SLOT_RANGES, False),
     ]
     del x_upd
+    x_hw = torch.randn((E, B, W, 2 * H), generator=rng).to(dev)
+    rows.append(bank_case("hw_upd, F=128, T=1", hw_bank(stacked["hw_upd"]), x_hw, ((0, 0, W),), False))
+    del x_hw
 
     def mp_case(case, h, a_flow, depth, mask, d, ranges, span=None, parent_rows=None):
         Eh, Bh, Nh, Hh = h.shape
@@ -190,28 +231,114 @@ def main() -> int:
     a_trim = skel.a_flow.index_select(0, idx).index_select(1, idx).contiguous()
     depth_trim = skel.op_depth.index_select(0, idx).contiguous()
     ones = torch.ones(len(order), device=dev)
-    h_trim = torch.randn((E, 256, len(order), H), generator=rng).to(dev)
+    h_trim = torch.randn((E, SIZES["placed_candidates"], len(order), H), generator=rng).to(dev)
     rows.append(mp_case(f"placed level d={d_lvl}, span {span}, parent_rows {p_rows}, shared fields",
                         h_trim, a_trim, depth_trim, ones, d_lvl, lvl_ranges, span, p_rows))
-    h_pad = torch.randn((E, 256, N, H), generator=rng).to(dev)
+    h_pad = torch.randn((E, SIZES["placed_candidates"], N, H), generator=rng).to(dev)
     rows.append(mp_case("full width, d=1, shared (N, N) skeleton", h_pad, skel.a_flow, skel.op_depth,
                         skel.op_mask, 1, SLOT_RANGES))
     del h_full, h_trim, h_pad
+
+    # mp_sweep at estimate_many's shapes: the 4096 graphs on their trimmed
+    # exact-banding layout, every level of the table in one launch
+    band = exact_banding(host_batch)
+    keep = torch.tensor(band.rows, device=dev)
+    a_b = g.a_flow.index_select(1, keep).index_select(2, keep).contiguous()
+    depth_b = g.op_depth.index_select(1, keep).contiguous()
+    mask_b = g.op_mask.index_select(1, keep).contiguous()
+    sweep_levels = gnn._banded_plan(band, band.ranges).levels
+    h_b = torch.randn((E, B, len(band.rows), H), generator=rng).to(dev)
+    _, _, _, H1 = stacked["op_upd"]["layers"][0]["w"].shape
+    sweep_flops = 0.0
+    for d, (s, e), _, p in sweep_levels:  # the rows this run's levels select
+        n_sel = int(((depth_b[:, s:e] == d) & (mask_b[:, s:e] > 0)).sum())
+        sweep_flops += 2.0 * E * n_sel * (p * H + 2 * H * H1 + H1 * H)
+    sweep_bytes = (4.0 * (2 * h_b.numel() + E * 5 * (2 * H * H1 + H1 + H1 * H + H))
+                   + 4.0 * (a_b.numel() + depth_b.numel() + mask_b.numel()))
+    rows.append(compare(
+        "mp_sweep", f"estimate_many: {B} graphs, {len(band.rows)} trimmed rows, {len(sweep_levels)} levels "
+        f"{[(d, list(sp), p) for d, sp, _, p in sweep_levels]}",
+        lambda: sweep_ops.mp_sweep(stacked["op_upd"], h_b, a_b, depth_b, mask_b, sweep_levels),
+        lambda: mp_sweep_ref(stacked["op_upd"], h_b, a_b, depth_b, mask_b, sweep_levels),
+        sweep_flops, sweep_bytes))
+    del h_b
+
+    # gather_sum / segment_sum at score_many's shapes: the 16-structure drain's
+    # rows (score_many runs them as one chunk, unpadded) on its trimmed
+    # layout, with the engine's own index tables
+    skels16 = batch_graphs([build_graph_skeleton(q, c) for q, c, _ in drain])
+    band16 = exact_banding(skels16)
+    keep16 = torch.tensor(band16.rows if band16.rows is not None else range(N), device=dev)
+    sk = graphs_to_device(skels16, dev)
+    ids16 = torch.as_tensor(np.concatenate([np.full(len(a), i) for i, (_, _, a) in enumerate(drain)]), device=dev)
+    ap16 = torch.as_tensor(np.concatenate([build_a_place_batch(q, c, a) for q, c, a in drain]), device=dev)
+    ap16 = ap16.index_select(1, keep16)
+    host16 = ap16.argmax(dim=-1)
+    placed16 = ap16.amax(dim=-1)[..., None]
+    flow_in = sk.a_flow.index_select(1, keep16).index_select(2, keep16).transpose(-1, -2)
+    pidx = torch.argsort(-flow_in, dim=-1, stable=True)[..., :2]
+    row_pidx, row_pmask = pidx[ids16], torch.gather(flow_in, -1, pidx)[ids16]
+    R16, n16 = ap16.shape[0], ap16.shape[1]
+
+    def gather_case(case, hh, idx, w):
+        """Bound: the FMAs of the nonzero weights, and the bytes of the h rows
+        those weights reference (each distinct (graph, row) once per member),
+        the output, and the int64 index and f32 weight tables.  Library:
+        ``embedding_bag`` over h flattened to rows, its index table built
+        here, outside the timing."""
+        Eg, Bg, Ng, Hg = hh.shape
+        Rg, Pg = idx.shape[1], idx.shape[2]
+        graph = torch.arange(Bg, device=dev)[:, None, None]
+        live = w != 0
+        n_rows = int(torch.unique((graph * Ng + idx)[live]).numel())
+        member = torch.arange(Eg, device=dev)[:, None, None, None]
+        flat_idx = ((member * Bg + graph) * Ng + idx).reshape(-1, Pg)
+        flat_w = w.expand(Eg, *w.shape).reshape(-1, Pg)
+        h_rows = hh.reshape(-1, Hg)
+        return compare("gather_sum", case, lambda: seg_ops.gather_sum(hh, idx, w),
+                       lambda: gather_sum_ref(hh, idx, w), 2.0 * Eg * int(live.sum()) * Hg,
+                       4.0 * Eg * (n_rows + Bg * Rg) * Hg + 12.0 * Bg * Rg * Pg,
+                       library=lambda: torch.nn.functional.embedding_bag(
+                           flat_idx, h_rows, mode="sum", per_sample_weights=flat_w).view(Eg, Bg, Rg, Hg))
+
+    h_hw16 = torch.randn((E, R16, W, H), generator=rng).to(dev)
+    rows.append(gather_case(f"stage 2, P=1: {R16} rows of {len(drain)} structures", h_hw16, host16[..., None], placed16))
+    d16, (s16, e16), _, _ = max(gnn._banded_plan(band16, band16.ranges or SLOT_RANGES).levels,
+                                key=lambda lv: lv[1][1] - lv[1][0])
+    h16 = torch.randn((E, R16, n16, H), generator=rng).to(dev)
+    rows.append(gather_case(f"stage 3 level d={d16}, span {(s16, e16)}, P=2, column slice",
+                            h16, row_pidx[:, s16:e16], row_pmask[:, s16:e16]))
+    x16 = torch.randn((E, R16, n16, H), generator=rng).to(dev)
+    seg_out = torch.empty((E, R16, W, H), device=dev)
+    seg_index = host16[..., None].expand(x16.shape)
+    rows.append(compare("segment_sum", f"stage 1: {R16} rows x {n16} operators -> {W} hosts",
+                        lambda: seg_ops.segment_sum(x16, host16, W), lambda: segment_sum_ref(x16, host16, W),
+                        1.0 * x16.numel(), 4.0 * (x16.numel() + seg_out.numel()) + 8.0 * host16.numel(),
+                        library=lambda: seg_out.zero_().scatter_add_(2, seg_index, x16)))
+    del h_hw16, h16, x16, seg_out
     torch.cuda.synchronize()
 
-    # -- 3. serve: the port's main path through its entry points -----------------
-    est = CostEstimator(models)
+    # -- 3. serve: the port's paths through their entry points -----------------
+    est = CostEstimator(models, device=DEVICE)
     cpu = CostEstimator(models, device="cpu")
-    counters = (bank_ops.banked_mlp_slotted, mp_ops.mp_update)
+    counters = {"banked_mlp": bank_ops.banked_mlp_slotted, "mp_update": mp_ops.mp_update,
+                "mp_sweep": sweep_ops.mp_sweep, "gather_sum": seg_ops.gather_sum,
+                "segment_sum": seg_ops.segment_sum}
+    path_launches = {}  # path -> launches per kernel, counted from 0 over that path alone
 
-    def launches():
-        return tuple(k.launches for k in counters)
-
-    def both_moved(before, what):
-        after = launches()
-        if not all(a > b for a, b in zip(after, before)):
-            raise AssertionError(f"{what}: kernel launch counters did not move ({before} -> {after})")
-        return [a - b for a, b in zip(after, before)]
+    def counted(path, fn, need, never=()):
+        """Run ``fn`` with every launch counter at 0; fail unless each kernel
+        of ``need`` launched and none of ``never`` did."""
+        for k in counters.values():
+            k.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        got = {n: k.launches for n, k in counters.items()}
+        for n, k in counters.items():
+            path_launches.setdefault(path, dict.fromkeys(counters, 0))[n] += k.launches
+        if any(got[n] == 0 for n in need) or any(got[n] for n in never):
+            raise AssertionError(f"{path}: launches {got}; need {need}, never {never}")
+        return out, got
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -222,73 +349,100 @@ def main() -> int:
 
     def check_answers(what, got, want, raw):
         """Regression within SERVE_RTOL; votes equal where every member's
-        logit in ``raw`` (CPU, metric -> (E, B)) is clear of 0 by 1e-3."""
+        logit in ``raw`` (metric -> (E, B)) is clear of 0 by 1e-3."""
         for m in want:
             a, b = np.asarray(got[m]), np.asarray(want[m])
+            if a.shape != b.shape or not np.isfinite(a).all():
+                raise AssertionError(f"{what} {m}: shape {a.shape} against {b.shape}, or non-finite values")
             if m in REGRESSION_METRICS:
                 if not np.allclose(a, b, rtol=SERVE_RTOL, atol=1e-6):
-                    raise AssertionError(f"{what} {m}: card and CPU disagree (max rel err "
+                    raise AssertionError(f"{what} {m}: answers disagree (max rel err "
                                          f"{float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-6)))})")
             else:
                 clear = (np.abs(raw[m]) > 1e-3).all(axis=0)
                 if not np.array_equal(a[clear], b[clear]):
                     raise AssertionError(f"{what} {m}: votes differ away from the threshold")
 
-    torch.cuda.reset_peak_memory_stats()
-    bank_ops.banked_mlp_slotted.launches = 0
-    mp_ops.mp_update.launches = 0
+    def batch_logits(graphs, device):
+        """Raw classification logits (metric -> (E, B)) of a host graph batch."""
+        gd = graphs_to_device(graphs, device)
+        with torch.no_grad():
+            return {m: forward_ensemble(nn.to_device(models[m][0], device), gd, models[m][1]).cpu().numpy()
+                    for m in CLASSIFICATION_METRICS}
 
+    def placed_logits(q, c, a, device):
+        skel_d = graphs_to_device(build_graph_skeleton(q, c), device)
+        ap = torch.as_tensor(build_a_place_batch(q, c, a), device=device)
+        with torch.no_grad():
+            return {m: gnn.apply_gnn_placed_members(nn.to_device(models[m][0], device), skel_d, ap,
+                                                    query_static(q), models[m][1].gnn)[..., 0].cpu().numpy()
+                    for m in CLASSIFICATION_METRICS}
+
+    def device_split(fn):
+        """One warm call under ``torch.profiler``: host wall ms, the device's
+        busy ms (kernels and copies), its idle share, and the five costliest
+        device entries.  Busy time None: the profiler saw no device work."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) * 1e3
+        dev_rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in dev_rows) / 1e3
+        top = sorted(dev_rows, key=lambda e: -e.self_device_time_total)[:5]
+        return {"wall_ms": wall, "device_busy_ms": busy if dev_rows else None,
+                "idle_share": 1.0 - busy / wall if dev_rows else None,
+                "top": [[e.key[:60], e.count, e.self_device_time_total / 1e3] for e in top]}
+
+    def same_runs(what, one, two):
+        for x, y in zip(one if isinstance(one, list) else [one], two if isinstance(two, list) else [two]):
+            for m in x:
+                if not np.array_equal(x[m], y[m]):
+                    raise AssertionError(f"{what} {m}: two runs on the card differ")
+
+    torch.cuda.reset_peak_memory_stats()
     serve = {"phase": "serve", "model": {"hidden": H, "metrics": len(ALL_METRICS), "members": E_MEMBERS,
                                          "use_pallas": True}}
+    per_request = ("banked_mlp", "mp_update")
+    cross = ("mp_update", "mp_sweep", "gather_sum", "segment_sum")
+
     # estimate: 4096 traces, full-depth scan plan
-    before = launches()
-    est_out, ms_first = timed(lambda: est.estimate(host_batch))
-    delta = both_moved(before, "estimate")
-    before = launches()
-    est_out2, ms_warm = timed(lambda: est.estimate(host_batch))
-    both_moved(before, "estimate (warm)")
-    sub = np.arange(256)
-    sub_batch = type(host_batch)(*[np.asarray(x)[sub] for x in host_batch])
-    sub_cpu = graphs_to_device(sub_batch, "cpu")
-    with torch.no_grad():
-        raw = {m: forward_ensemble(models[m][0], sub_cpu, models[m][1]).numpy() for m in CLASSIFICATION_METRICS}
-    check_answers("estimate", {m: v[sub] for m, v in est_out.items()}, cpu.estimate(sub_batch), raw)
+    (est_out, ms_first), delta = counted("estimate", lambda: timed(lambda: est.estimate(host_batch)), per_request)
+    (est_out2, ms_warm), _ = counted("estimate", lambda: timed(lambda: est.estimate(host_batch)), per_request)
+    sub = np.arange(min(256, B))
+    sub_batch = JointGraph(*[np.asarray(x)[sub] for x in host_batch])
+    check_answers("estimate", {m: v[sub] for m, v in est_out.items()}, cpu.estimate(sub_batch),
+                  batch_logits(sub_batch, "cpu"))
+    same_runs("estimate", est_out, est_out2)
     for m in est_out:
-        if not np.array_equal(est_out[m], est_out2[m]):
-            raise AssertionError(f"estimate {m}: two runs on the card differ")
         if est_out[m].shape != (B,) or not np.isfinite(est_out[m]).all():
             raise AssertionError(f"estimate {m}: bad shape or non-finite values")
     serve["estimate"] = {"graphs": int(B), "ms_first": ms_first, "ms": ms_warm, "corpus_s": t_corpus,
-                         "featurize_s": t_featurize, "launches": dict(zip(("banked_mlp", "mp_update"), delta))}
+                         "featurize_s": t_featurize, "launches": delta}
 
     # score: 1024 sampled candidates on each of 8 distinct queries
     kinds = ("linear", "two_way", "three_way", "linear", "two_way", "three_way", "two_way", "linear")
     queries = [(workload.query(kind=k, name=f"q{i}"), workload.cluster(4 + i % 4)) for i, k in enumerate(kinds)]
     score_ms, n_cands, score_launches = [], [], []
     for i, (q, c) in enumerate(queries):
-        a = sample_assignment_matrix(q, c, 1024, np.random.default_rng(i))
-        before = launches()
-        out, ms = timed(lambda: est.score(q, c, a))
-        score_launches.append(both_moved(before, f"score q{i}"))
+        a = sample_assignment_matrix(q, c, SIZES["score_candidates"], np.random.default_rng(i))
+        (out, ms), delta = counted("score", lambda: timed(lambda: est.score(q, c, a)), per_request)
+        score_launches.append([delta[n] for n in per_request])
         score_ms.append(ms)
         n_cands.append(len(a))
-        want = cpu.score(q, c, a)
-        skel_c = graphs_to_device(build_graph_skeleton(q, c), "cpu")
-        with torch.no_grad():
-            raw = {m: gnn.apply_gnn_placed_members(models[m][0], skel_c,
-                                                   torch.from_numpy(build_a_place_batch(q, c, a)),
-                                                   query_static(q), models[m][1].gnn)[..., 0].numpy()
-                   for m in CLASSIFICATION_METRICS}
-        check_answers(f"score q{i}", out, want, raw)
+        check_answers(f"score q{i}", out, cpu.score(q, c, a), placed_logits(q, c, a, "cpu"))
     serve["score"] = {"queries": len(queries), "candidates": n_cands, "ms": score_ms,
                       "launches_banked_mlp_mp_update": score_launches}
 
     # optimize: the paper's placement search on 8 queries
     opt_ms, same = [], 0
     for i, (q, c) in enumerate(queries):
-        before = launches()
-        r, ms = timed(lambda: est.optimize(q, c, "latency_p", rng=np.random.default_rng(100 + i)))
-        both_moved(before, f"optimize q{i}")
+        (r, ms), _ = counted("optimize", lambda: timed(
+            lambda: est.optimize(q, c, "latency_p", rng=np.random.default_rng(100 + i))), per_request)
         opt_ms.append(ms)
         r_cpu = cpu.optimize(q, c, "latency_p", rng=np.random.default_rng(100 + i))
         if r.placement.assignment == r_cpu.placement.assignment:
@@ -298,23 +452,70 @@ def main() -> int:
             if not np.isclose(r_cpu.scores[j], r_cpu.predicted["latency_p"], rtol=SERVE_RTOL):
                 raise AssertionError(f"optimize q{i}: the card picked a worse placement than the CPU")
     serve["optimize"] = {"queries": len(queries), "ms": opt_ms, "same_placement_as_cpu": same}
+
+    # estimate_many: the 4096 graphs as 8 batches, one merged chunk, the fused
+    # sweep (exactly one mp_sweep launch per chunk, no mp_update)
+    (many, many_first), d1 = counted("estimate_many", lambda: timed(lambda: est.estimate_many(many_batches)),
+                                     ("banked_mlp", "mp_sweep"), ("mp_update", "gather_sum", "segment_sum"))
+    (many2, many_warm), d2 = counted("estimate_many", lambda: timed(lambda: est.estimate_many(many_batches)),
+                                     ("banked_mlp", "mp_sweep"), ("mp_update", "gather_sum", "segment_sum"))
+    if d1["mp_sweep"] != 1 or d2["mp_sweep"] != 1:
+        raise AssertionError(f"estimate_many: {d1['mp_sweep']} and {d2['mp_sweep']} mp_sweep launches, want 1 per chunk")
+    same_runs("estimate_many", many, many2)
+    card_raw = batch_logits(host_batch, dev)
+    for i, (b_i, got_i) in enumerate(zip(many_batches, many)):
+        rows_i = slice(mb * i, mb * (i + 1))
+        check_answers(f"estimate_many batch {i} against estimate on the card", got_i, est.estimate(b_i),
+                      {m: v[:, rows_i] for m, v in card_raw.items()})
+    subset = [JointGraph(*[x[:16] for x in b_i]) for b_i in many_batches]
+    cpu_many = cpu.estimate_many(subset)
+    for i, (got_i, want_i) in enumerate(zip(many, cpu_many)):
+        check_answers(f"estimate_many batch {i} against the CPU", {m: v[:16] for m, v in got_i.items()}, want_i,
+                      batch_logits(subset[i], "cpu"))
+    serve["estimate_many"] = {"batches": len(many_batches), "graphs": int(B), "ms_first": many_first,
+                              "ms": many_warm, "launches": d2,
+                              "profile": device_split(lambda: est.estimate_many(many_batches))}
+    serve["estimate"]["profile"] = device_split(lambda: est.estimate(host_batch))
+
+    # score_many: 16 distinct structures x up to 256 candidates, one merged forward
+    (sm, sm_first), d1 = counted("score_many", lambda: timed(lambda: est.score_many(drain)),
+                                 ("banked_mlp", "gather_sum", "segment_sum"), ("mp_update", "mp_sweep"))
+    (sm2, sm_warm), d2 = counted("score_many", lambda: timed(lambda: est.score_many(drain)),
+                                 ("banked_mlp", "gather_sum", "segment_sum"), ("mp_update", "mp_sweep"))
+    same_runs("score_many", sm, sm2)
+    sub_drain = [(q, c, a[:32]) for q, c, a in drain]
+    cpu_sm = cpu.score_many(sub_drain)
+    for i, ((q, c, a), got_i) in enumerate(zip(drain, sm)):
+        check_answers(f"score_many request {i} against score on the card", got_i, est.score(q, c, a),
+                      placed_logits(q, c, a, dev))
+        check_answers(f"score_many request {i} against the CPU", {m: v[:32] for m, v in got_i.items()},
+                      cpu_sm[i], placed_logits(q, c, a[:32], "cpu"))
+    serve["score_many"] = {"structures": len(drain), "candidates": int(sum(len(a) for _, _, a in drain)),
+                           "ms_first": sm_first, "ms": sm_warm, "launches": d2,
+                           "profile": device_split(lambda: est.score_many(drain))}
     torch.cuda.synchronize()
-    main_launches = dict(zip(("banked_mlp", "mp_update"), launches()))
-    serve["launches"] = main_launches
+    serve["launches"] = path_launches
     serve["max_memory_allocated_bytes"] = int(torch.cuda.max_memory_allocated())
     emit(serve)
 
     # -- 4. kernel summary (the representative case: the most work on the path) -------
-    sources = {"banked_mlp": ("src/repro_torch/csrc/banked_mlp.cu", "src/repro/kernels/banked_mlp/kernel.py:53"),
-               "mp_update": ("src/repro_torch/csrc/mp_update.cu", "src/repro/kernels/mp_update/kernel.py:64")}
+    sources = {
+        "banked_mlp": ("src/repro_torch/csrc/banked_mlp.cu", "src/repro/kernels/banked_mlp/kernel.py:53"),
+        "mp_update": ("src/repro_torch/csrc/mp_update.cu", "src/repro/kernels/mp_update/kernel.py:64"),
+        "mp_sweep": ("src/repro_torch/csrc/mp_sweep.cu", "src/repro/kernels/mp_sweep/kernel.py:73"),
+        "gather_sum": ("src/repro_torch/csrc/seg_gather.cu", "src/repro/kernels/seg_gather/kernel.py:63"),
+        "segment_sum": ("src/repro_torch/csrc/seg_gather.cu", "src/repro/kernels/seg_gather/kernel.py:94"),
+    }
     summary = []
     for name, (src, replaces) in sources.items():
         mine = [r for r in rows if r["kernel"] == name]
         rep = max(mine, key=lambda r: r["flops"])
         summary.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                        "launches": main_launches[name], "max_abs_err": max(r["max_abs_err"] for r in mine),
+                        "launches": sum(path[name] for path in path_launches.values()),
+                        "launches_by_path": {k: v[name] for k, v in path_launches.items() if v[name]},
+                        "max_abs_err": max(r["max_abs_err"] for r in mine),
                         "ms": rep["ms"], "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
-                        "bound_by": rep["bound_by"], "library_ms": None, "case": rep["case"],
+                        "bound_by": rep["bound_by"], "library_ms": rep["library_ms"], "case": rep["case"],
                         "shape": rep["shape"]})
     emit({"kernels": summary})
 

@@ -19,10 +19,12 @@ shape ``(E, B, N, H)``, where the JAX package ran one member's forward under
 
 ``GNNConfig.use_pallas`` keeps its name and meaning (bundles carry it): it
 routes the banked MLPs of stages 0-2 through ``kernels/banked_mlp`` and the
-stage-3 sweep through ``kernels/mp_update``, exactly where the JAX package
-routes them through its Pallas kernels; configs the kernels cannot fuse
-raise.  ``False`` runs the plain PyTorch formulation of the JAX package's
-jnp branch.
+stage-3 sweep through ``kernels/mp_update`` (``scan``, ``exact``) or
+``kernels/mp_sweep`` (``sweep``), exactly where the JAX package routes them
+through its Pallas kernels; configs the kernels cannot fuse raise.  ``False``
+runs the plain PyTorch formulation of the JAX package's jnp branch.  The
+cross-query merged engine (``apply_gnn_merged``) runs its aggregations
+through ``kernels/seg_gather`` whatever ``use_pallas`` says, as in JAX.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch import nn
@@ -42,8 +45,11 @@ from repro_torch.core.graph import (
     QueryStatic,
 )
 from repro_torch.kernels.banked_mlp import ops as bank_ops
+from repro_torch.kernels.mp_sweep import ops as sweep_ops
+from repro_torch.kernels.mp_sweep.ref import mp_sweep_ref
 from repro_torch.kernels.mp_update import ops as mp_ops
 from repro_torch.kernels.mp_update.ref import mp_update_ref
+from repro_torch.kernels.seg_gather import ops as seg_ops
 
 
 @dataclass(frozen=True)
@@ -125,7 +131,7 @@ class StagePlan(NamedTuple):
       * ``"scan"``   — depths ``1..depth_max``, full row width, dynamic
         depth-select (generic batches without banding);
       * ``"sweep"``  — all of ``levels`` in one fused ``mp_sweep`` launch
-        (not ported yet: raises);
+        (the plain path runs the same levels one by one);
       * ``"banded"`` — unrolled over ``levels``; each level runs at its
         ``row_span`` with a ``parent_rows`` contraction bound;
       * ``"exact"``  — the placement-specialized sweep: the plain path
@@ -178,17 +184,19 @@ def _dataflow_sweep(params, h, a_flow, op_depth, op_mask, cfg: GNNConfig, ranges
     ``(N, N)``; ``op_depth`` ``(B, N)`` or ``(N,)``; ``op_mask`` ``(B, N, 1)``
     or None when no row is padded.
     """
-    if plan.kind == "sweep":
-        raise NotImplementedError(
-            "StagePlan('sweep') runs the fused mp_sweep kernel, which the port "
-            "does not have yet (ROADMAP.md queue 2, item 1, with queue 1, item 3: "
-            "the banded forward of estimate_many and training). Pass banding=None."
-        )
     mask_vec = (
         op_mask[..., 0]
         if op_mask is not None
         else torch.ones(op_depth.shape, dtype=torch.float32, device=h.device)
     )
+    if plan.kind == "sweep":
+        if cfg.use_pallas:
+            # the whole banding table in ONE kernel launch (vs one per level)
+            _require_fusable(params["op_upd"], "op_upd (stage-3 mp_sweep)")
+            return sweep_ops.mp_sweep(params["op_upd"], h, a_flow, op_depth, mask_vec, plan.levels)
+        return mp_sweep_ref(
+            params["op_upd"], h, a_flow, op_depth, mask_vec, plan.levels, apply_fn=nn.apply_mlp_bank_slotted
+        )
     if cfg.use_pallas:
         _require_fusable(params["op_upd"], "op_upd (stage-3 mp_update)")
         if plan.kind == "scan":
@@ -333,9 +341,11 @@ def apply_gnn_batch(
 ) -> torch.Tensor:
     """One member's forward for a padded graph (batch) -> (..., n_outputs).
 
-    ``banding=None`` runs the full ``max_depth`` scan.  A banding selects the
-    fused ``sweep`` plan, which raises until ``mp_sweep`` is ported (the
-    ``banded`` fallback still serves update banks that are not 2-layer).
+    ``banding=None`` runs the full ``max_depth`` scan.  A banding (from
+    ``bucketing.batch_banding`` / ``exact_banding``) selects the fused
+    ``sweep`` plan: one ``mp_sweep`` call for the whole table (update banks
+    that are not 2-layer take the per-level ``banded`` loop); a banding with
+    a row trim runs every stage on its trimmed layout.
     """
     return _batch_forward(nn.members(params), g, cfg, banding)[0]
 
@@ -360,11 +370,119 @@ def apply_gnn_stacked(
     return _batch_forward(params, g, cfg, banding)[..., 0]
 
 
-def apply_gnn_merged(*args, **kwargs):
-    raise NotImplementedError(
-        "apply_gnn_merged (the cross-query merged engine) is not ported yet: "
-        "ROADMAP.md queue 1, item 6, with the seg_gather kernels of queue 2."
-    )
+def validate_merged_parents(a_flow, max_parents: int) -> None:
+    """Raise when any row's data-flow in-degree exceeds ``max_parents``.
+
+    The merged engine's parent tables keep only the top ``max_parents``
+    entries of each ``a_flow`` column: a row with more parents would have
+    them silently dropped and the stage-3 sums would be WRONG, not slow.
+    Host-side: ``apply_gnn_merged`` calls it for CPU skeletons.
+    """
+    if isinstance(a_flow, torch.Tensor):
+        a_flow = a_flow.detach().cpu().numpy()
+    indeg = np.asarray(a_flow).sum(axis=-2)
+    worst = int(indeg.max(initial=0))
+    if worst > max_parents:
+        loc = tuple(int(v) for v in np.argwhere(indeg > max_parents)[0])
+        raise ValueError(
+            f"merged cross-query engine: skeleton stack row {loc} has data-flow "
+            f"in-degree {worst} > max_parents={max_parents}; the parent-table "
+            "gather would silently drop parents and return wrong sums. Pass "
+            "max_parents >= the stack's true maximum in-degree "
+            "(a_flow.sum(axis=-2).max(), as serve.estimator derives it)."
+        )
+
+
+def apply_gnn_merged(
+    params: nn.Params,
+    skels: JointGraph,  # (S, N, .) stacked skeletons (``a_place`` ignored)
+    skel_id: torch.Tensor,  # (B,) int: row -> skeleton
+    a_place: torch.Tensor,  # (B, N, W) one-hot placement adjacency per row
+    cfg: GNNConfig,
+    banding: BatchBanding,
+    max_parents: int = 2,
+) -> torch.Tensor:
+    """ONE member-stacked forward over candidates of S DISTINCT structures.
+
+    The cross-query serving engine: a merged drain's rows reference their
+    structure through ``skel_id`` instead of materializing per-row skeleton
+    copies, and the graph's sparsity is static (every operator has at most
+    ``max_parents`` data-flow parents and exactly one host), so the
+    aggregations become index ops:
+
+      * stage 0 runs on the S skeletons only (every member reads the same
+        input, at member stride 0) and is gathered per row;
+      * stage 1 (OPS->HW) is a per-row ``segment_sum`` over each host's
+        operators;
+      * stage 2 (HW->OPS) is a ``gather_sum`` of each operator's one host
+        state (P = 1, the placed flag as weight);
+      * each stage-3 level is a ``gather_sum`` of the span rows'
+        ``max_parents`` parent states (per-skeleton parent tables, built once
+        per forward from ``a_flow``) and the banked update at the span.
+
+    Numerically equal to ``apply_gnn_stacked`` on the expanded broadcast
+    batch to float tolerance (same sums, another association).  The
+    aggregations run through ``kernels/seg_gather`` whatever ``use_pallas``
+    says; the banked MLPs follow ``use_pallas``.  ``banding`` must come from
+    ``bucketing.exact_banding_cached`` over ``skels``.  The in-degree bound is
+    checked here for CPU skeletons; on a GPU the check would wait for the
+    device, so the caller owns the bound there: the estimator derives
+    ``max_parents`` from its host stack's in-degrees.  Returns ``(E, B)`` raw
+    outputs.
+    """
+    if skels.a_flow.device.type == "cpu":
+        validate_merged_parents(skels.a_flow, max_parents)
+    ranges = SLOT_RANGES
+    if banding.rows is not None:
+        skels = _trim_rows(skels, banding.rows)
+        a_place = a_place.index_select(1, torch.tensor(banding.rows, device=a_place.device))
+        ranges = banding.ranges
+    plan = _banded_plan(banding, ranges)
+    n_hw = skels.hw_x.shape[-2]
+    E = _n_members(params)
+
+    # static sparsity, derived once per forward: parent tables per skeleton
+    # (columns of a_flow hold each row's parents; a stable sort keeps the
+    # reference's parent order) and one host per row
+    flow_in = skels.a_flow.transpose(-1, -2)  # (S, N, N): [v, u] = u -> v
+    pidx = torch.argsort(-flow_in, dim=-1, stable=True)[..., :max_parents]  # (S, N, P)
+    pmask = torch.gather(flow_in, -1, pidx)  # (S, N, P) in {0, 1}
+    row_pidx = pidx[skel_id]  # (B, N, P) int64
+    row_pmask = pmask[skel_id]  # (B, N, P)
+    host = a_place.argmax(dim=-1)  # (B, N) int64
+    placed = a_place.amax(dim=-1)[..., None]  # (B, N, 1): 0 for padded rows
+    op_mask_s = skels.op_mask[..., None]  # (S, N, 1)
+    hw_mask_b = skels.hw_mask[skel_id][..., None]  # (B, W, 1)
+    op_mask_b = op_mask_s[skel_id]  # (B, N, 1)
+    depth_b = skels.op_depth[skel_id]  # (B, N)
+
+    # stage 0 on the S skeletons only, gathered out per candidate row
+    h_ops_s = _apply_bank(params["op_enc"], skels.op_x.expand(E, *skels.op_x.shape), cfg, ranges) * op_mask_s
+    h_hw_s = _apply_shared(params["hw_enc"], skels.hw_x.expand(E, *skels.hw_x.shape), cfg, "hw_enc")
+    h_hw_s = h_hw_s * skels.hw_mask[..., None]
+    h0 = h_ops_s[:, skel_id]  # (E, B, N, H)
+    hw0 = h_hw_s[:, skel_id]  # (E, B, W, H)
+
+    # stage 1: hosts absorb their operators (segment sum per row)
+    msg_hw = seg_ops.segment_sum(h0 * placed, host, n_hw)  # (E, B, W, H)
+    h_hw = _apply_shared(params["hw_upd"], torch.cat([hw0, msg_hw], dim=-1), cfg, "hw_upd") * hw_mask_b
+
+    # stage 2: operators absorb their single host's state (gather, P = 1)
+    msg_ops = seg_ops.gather_sum(h_hw, host[..., None], placed)
+    h = _apply_bank(params["op_upd"], torch.cat([h0, msg_ops], dim=-1), cfg, ranges) * op_mask_b
+
+    # stage 3: banded levels; parents gathered, never contracted.  ``h`` is
+    # this function's own tensor, so each level writes its span in place.
+    for d, (s, e), level_ranges, _ in plan.levels:
+        msg = seg_ops.gather_sum(h, row_pidx[:, s:e], row_pmask[:, s:e])
+        z = torch.cat([h[..., s:e, :], msg], dim=-1)
+        shifted = tuple((t, a - s, b - s) for t, a, b in level_ranges)
+        upd = _apply_bank(params["op_upd"], z, cfg, shifted)
+        sel = ((depth_b[:, s:e] == d) & (op_mask_b[:, s:e, 0] > 0))[..., None]
+        h[..., s:e, :] = torch.where(sel, upd, h[..., s:e, :])
+
+    pooled = h.sum(dim=-2) + h_hw.sum(dim=-2)
+    return nn.apply_mlp(params["out"], pooled)[..., 0]
 
 
 def apply_gnn_placed_members(

@@ -24,13 +24,14 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-KERNELS = ("banked_mlp", "mp_update")
+KERNELS = ("banked_mlp", "mp_update", "mp_sweep", "seg_gather")  # one source, one library each
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 MAX_RANGES = 12  # kMaxRanges in csrc/mlp_tile.cuh
+MAX_LEVELS = 8  # kMaxLevels in csrc/mp_sweep.cu
 
 
 class SlotRanges(ctypes.Structure):
@@ -55,18 +56,63 @@ class SlotRanges(ctypes.Structure):
         return s
 
 
+class SweepLevel(ctypes.Structure):
+    """``repro_torch::SweepLevel``: one level of the stage-3 banding table."""
+
+    _fields_ = [
+        ("depth", ctypes.c_int),
+        ("span_start", ctypes.c_int),
+        ("span_stop", ctypes.c_int),
+        ("parent_rows", ctypes.c_int),
+        ("ranges", SlotRanges),
+    ]
+
+
+class SweepLevels(ctypes.Structure):
+    """``repro_torch::SweepLevels``: the whole banding table, by value."""
+
+    _fields_ = [("n", ctypes.c_int), ("level", SweepLevel * MAX_LEVELS)]
+
+    @classmethod
+    def of(cls, levels) -> "SweepLevels":
+        """From normalized ``(d, (s, e), slot_ranges, parent_rows)`` levels."""
+        levels = tuple(levels)
+        if not 1 <= len(levels) <= MAX_LEVELS:
+            raise ValueError(f"need 1..{MAX_LEVELS} sweep levels, got {len(levels)}")
+        table = cls()
+        table.n = len(levels)
+        for i, (d, (s, e), ranges, p) in enumerate(levels):
+            lv = table.level[i]
+            lv.depth, lv.span_start, lv.span_stop, lv.parent_rows = int(d), int(s), int(e), int(p)
+            lv.ranges = SlotRanges.of(ranges)
+        return table
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+# kernel entry -> (source of its library, C symbol, argument types)
 SIGNATURES = {
     # x, x_member_stride, w1, b1, w2, b2, y, E, B, N, F, H1, H2, T, ranges, device, stream
-    "banked_mlp": ("banked_mlp_launch", [_P, _L, _P, _P, _P, _P, _P] + [_I] * 7 + [SlotRanges, _I, _P]),
+    "banked_mlp": ("banked_mlp", "banked_mlp_launch", [_P, _L, _P, _P, _P, _P, _P] + [_I] * 7 + [SlotRanges, _I, _P]),
     # h, out, a_flow, a_bs, depth, d_bs, mask, m_bs, w1, b1, w2, b2, E, B, N, H, H1, T,
     # ranges, span_start, span_stop, parent_rows, d, device, stream
     "mp_update": (
+        "mp_update",
         "mp_update_launch",
         [_P, _P, _P, _L, _P, _L, _P, _L, _P, _P, _P, _P] + [_I] * 6 + [SlotRanges] + [_I] * 5 + [_P],
     ),
+    # h, out, a_flow, a_bs, depth, d_bs, mask, m_bs, w1, b1, w2, b2, E, B, N, H, H1, T,
+    # levels, device, stream
+    "mp_sweep": (
+        "mp_sweep",
+        "mp_sweep_launch",
+        [_P, _P, _P, _L, _P, _L, _P, _L, _P, _P, _P, _P] + [_I] * 6 + [SweepLevels, _I, _P],
+    ),
+    # h, idx, idx_bs, idx_rs, idx_ps, w, w_bs, w_rs, w_ps, out, E, B, N, R, P, H, device, stream
+    "gather_sum": ("seg_gather", "gather_sum_launch", [_P, _P, _L, _L, _L, _P, _L, _L, _L, _P] + [_I] * 7 + [_P]),
+    # x, seg, seg_bs, out, E, B, N, S, H, device, stream
+    "segment_sum": ("seg_gather", "segment_sum_launch", [_P, _P, _L, _P] + [_I] * 6 + [_P]),
 }
 
 _lock = threading.Lock()
@@ -94,11 +140,14 @@ def _ptxas_summary(log: str) -> Dict[str, Dict[str, int]]:
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            t = re.search(r"(\w+_kernel)ILi(\d+)E", m.group(1))  # demangle kernel<CPT>
+            t = re.search(r"\d+([a-z_]+_kernel)ILi(\d+)E", m.group(1))  # demangle kernel<N>
             entry = out.setdefault(f"{t.group(1)}<{t.group(2)}>" if t else m.group(1), {})
             continue
         if entry is None:
             continue
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m:
+            entry["stack_frame_bytes"] = int(m.group(1))
         m = re.search(r"(\d+) bytes spill stores", line)
         if m:
             entry["spill_store_bytes"] = int(m.group(1))
@@ -146,16 +195,16 @@ def build_all(names: Sequence[str] = KERNELS, force: bool = False) -> Dict[str, 
 
 
 def launcher(name: str):
-    """The ``ctypes`` entry point of kernel ``name``, building it on first use."""
+    """The ``ctypes`` entry point of kernel ``name``, building its library on first use."""
     fn = _loaded.get(name)
     if fn is not None:
         return fn
     with _lock:
         if name not in _loaded:
-            lib = _library_path(name)
+            source, symbol, argtypes = SIGNATURES[name]
+            lib = _library_path(source)
             if not lib.exists():
-                build_all([name])
-            symbol, argtypes = SIGNATURES[name]
+                build_all([source])
             fn = getattr(ctypes.CDLL(str(lib)), symbol)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int

@@ -18,20 +18,78 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.mp_update.ref import mp_update_ref
 
 
-def _batch_stride(t: torch.Tensor, name: str, n_batched: int, row_shape) -> int:
+def _batch_stride(what: str, t: torch.Tensor, name: str, n_batched: int, row_shape) -> int:
     """0 for a field shared by the batch, else its leading stride."""
     if tuple(t.shape[-len(row_shape):]) != tuple(row_shape) or t.ndim not in (len(row_shape), len(row_shape) + 1):
-        raise ValueError(f"mp_update: {name} has shape {tuple(t.shape)}, want (B?, {row_shape})")
+        raise ValueError(f"{what}: {name} has shape {tuple(t.shape)}, want (B?, {row_shape})")
     if t.ndim == len(row_shape):
         body = t
         stride = 0
     else:
         if t.shape[0] != n_batched:
-            raise ValueError(f"mp_update: {name} has batch {t.shape[0]}, h has {n_batched}")
+            raise ValueError(f"{what}: {name} has batch {t.shape[0]}, h has {n_batched}")
         body, stride = t[0], t.stride(0)
     if not body.is_contiguous():
-        raise ValueError(f"mp_update: {name} rows must be contiguous; strides {t.stride()}")
+        raise ValueError(f"{what}: {name} rows must be contiguous; strides {t.stride()}")
     return stride
+
+
+def check_step_operands(what: str, params, h, a_flow, depth, mask):
+    """Validate the operands a stage-3 kernel (``mp_update``, ``mp_sweep``)
+    takes; return ``(w1, b1, w2, b2, (E, B, N, H, T, H1), (a_bs, d_bs, m_bs))``
+    with the graph fields' batch strides (0 when shared by the batch)."""
+    if len(params["layers"]) != 2:
+        raise NotImplementedError(f"the {what} kernel fuses exactly two layers, got {len(params['layers'])}")
+    (l1, l2) = params["layers"]
+    w1, b1, w2, b2 = l1["w"], l1["b"], l2["w"], l2["b"]
+    for name, t in (("h", h), ("a_flow", a_flow), ("mask", mask), ("w1", w1), ("b1", b1), ("w2", w2), ("b2", b2)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{what} takes float32 only; {name} is {t.dtype}")
+    if depth.dtype != torch.int32:
+        raise TypeError(f"{what}: depth must be int32, got {depth.dtype}")
+    for name, t in (("a_flow", a_flow), ("depth", depth), ("mask", mask), ("w1", w1), ("b1", b1), ("w2", w2), ("b2", b2)):
+        if t.device != h.device:
+            raise ValueError(f"{what}: {name} is on {t.device}, h on {h.device}")
+    if h.ndim != 4 or w1.ndim != 4:
+        raise ValueError(f"{what} wants h (E, B, N, H) and W1 (E, T, 2H, H1); got {tuple(h.shape)}, {tuple(w1.shape)}")
+    E, B, N, H = h.shape
+    T, H1 = w1.shape[1], w1.shape[3]
+    if (
+        tuple(w1.shape) != (E, T, 2 * H, H1)
+        or tuple(b1.shape) != (E, T, H1)
+        or tuple(w2.shape) != (E, T, H1, H)
+        or tuple(b2.shape) != (E, T, H)
+    ):
+        raise ValueError(
+            f"{what}: shapes disagree: h %s, w1 %s, b1 %s, w2 %s, b2 %s"
+            % tuple(tuple(t.shape) for t in (h, w1, b1, w2, b2))
+        )
+    strides = (
+        _batch_stride(what, a_flow, "a_flow", B, (N, N)),
+        _batch_stride(what, depth, "depth", B, (N,)),
+        _batch_stride(what, mask, "mask", B, (N,)),
+    )
+    return w1, b1, w2, b2, (E, B, N, H, T, H1), strides
+
+
+def check_level(what: str, row_span, slot_ranges, parent_rows, n_rows: int, n_types: int):
+    """One stage-3 level's span, ranges and parent bound as ints:
+    ``((s, e), ranges, p)``; raise unless the ranges tile the span in order."""
+    s, e = (0, n_rows) if row_span is None else (int(row_span[0]), int(row_span[1]))
+    if not 0 <= s < e <= n_rows:
+        raise ValueError(f"{what}: row span {(s, e)} outside [0, {n_rows})")
+    ranges = tuple((int(t), int(a), int(b)) for t, a, b in slot_ranges)
+    edge = s
+    for t, a, b in ranges:
+        if a != edge or b <= a or not 0 <= t < n_types:
+            raise ValueError(f"{what}: slot ranges must tile row span {(s, e)} in order, got {ranges}")
+        edge = b
+    if edge != e:
+        raise ValueError(f"{what}: slot ranges must tile row span {(s, e)}, got {ranges}")
+    p = n_rows if parent_rows is None else int(parent_rows)
+    if not 0 < p <= n_rows:
+        raise ValueError(f"{what}: parent_rows {p} outside (0, {n_rows}]")
+    return (s, e), ranges, p
 
 
 def mp_update(
@@ -53,51 +111,10 @@ def mp_update(
     ``parent_rows=p`` promises ``a_flow[u, v] == 0`` for ``u >= p`` and ``v``
     in the span, bounding the aggregation.
     """
-    if len(params["layers"]) != 2:
-        raise NotImplementedError(
-            f"the mp-update kernel fuses exactly two layers, got {len(params['layers'])}"
-        )
-    (l1, l2) = params["layers"]
-    w1, b1, w2, b2 = l1["w"], l1["b"], l2["w"], l2["b"]
-    for name, t in (("h", h), ("a_flow", a_flow), ("mask", mask), ("w1", w1), ("b1", b1), ("w2", w2), ("b2", b2)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"mp_update takes float32 only; {name} is {t.dtype}")
-    if depth.dtype != torch.int32:
-        raise TypeError(f"mp_update: depth must be int32, got {depth.dtype}")
-    for name, t in (("a_flow", a_flow), ("depth", depth), ("mask", mask), ("w1", w1), ("b1", b1), ("w2", w2), ("b2", b2)):
-        if t.device != h.device:
-            raise ValueError(f"mp_update: {name} is on {t.device}, h on {h.device}")
-    if h.ndim != 4 or w1.ndim != 4:
-        raise ValueError(f"mp_update wants h (E, B, N, H) and W1 (E, T, 2H, H1); got {tuple(h.shape)}, {tuple(w1.shape)}")
-    E, B, N, H = h.shape
-    T, H1 = w1.shape[1], w1.shape[3]
-    if (
-        tuple(w1.shape) != (E, T, 2 * H, H1)
-        or tuple(b1.shape) != (E, T, H1)
-        or tuple(w2.shape) != (E, T, H1, H)
-        or tuple(b2.shape) != (E, T, H)
-    ):
-        raise ValueError(
-            "mp_update: shapes disagree: h %s, w1 %s, b1 %s, w2 %s, b2 %s"
-            % tuple(tuple(t.shape) for t in (h, w1, b1, w2, b2))
-        )
-    a_bs = _batch_stride(a_flow, "a_flow", B, (N, N))
-    d_bs = _batch_stride(depth, "depth", B, (N,))
-    m_bs = _batch_stride(mask, "mask", B, (N,))
-    s, e = (0, N) if row_span is None else (int(row_span[0]), int(row_span[1]))
-    if not 0 <= s < e <= N:
-        raise ValueError(f"mp_update: row span {(s, e)} outside [0, {N})")
-    ranges = tuple((int(t), int(a), int(b)) for t, a, b in slot_ranges)
-    edge = s
-    for t, a, b in ranges:
-        if a != edge or b <= a or not 0 <= t < T:
-            raise ValueError(f"mp_update: slot ranges must tile row span {(s, e)} in order, got {ranges}")
-        edge = b
-    if edge != e:
-        raise ValueError(f"mp_update: slot ranges must tile row span {(s, e)}, got {ranges}")
-    p = N if parent_rows is None else int(parent_rows)
-    if not 0 < p <= N:
-        raise ValueError(f"mp_update: parent_rows {p} outside (0, {N}]")
+    w1, b1, w2, b2, (E, B, N, H, T, H1), (a_bs, d_bs, m_bs) = check_step_operands(
+        "mp_update", params, h, a_flow, depth, mask
+    )
+    (s, e), ranges, p = check_level("mp_update", row_span, slot_ranges, parent_rows, N, T)
     d = int(d)
     if h.device.type == "cpu":
         return mp_update_ref(

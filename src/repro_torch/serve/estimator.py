@@ -1,9 +1,10 @@
 """``CostEstimator``: the inference facade over trained cost models, in PyTorch.
 
-The port of ``repro/serve/estimator.py``'s single-query surface: generic cost
-estimation for placed queries (``estimate``, ``proba``), candidate-placement
-scoring (``scorer``/``score``) and placement search (``optimize``), built
-from an in-memory model dict or a ``CostModelBundle``.  It owns
+The port of ``repro/serve/estimator.py``: generic cost estimation for placed
+queries (``estimate``, ``proba``), candidate-placement scoring (``scorer`` /
+``score``), placement search (``optimize``), and the cross-query paths that
+answer many requests in one forward (``estimate_many``, ``score_many``),
+built from an in-memory model dict or a ``CostModelBundle``.  It owns
 
 * the device: every forward runs on ``device`` (default ``"cuda"``; a
   machine without a GPU raises unless the caller asks for ``"cpu"``);
@@ -12,11 +13,16 @@ from an in-memory model dict or a ``CostModelBundle``.  It owns
   ``optimize`` call on the same pair;
 * the per-metrics-tuple **stacked-ensemble cache**: all requested metrics
   ride ONE fused forward (one kernel launch per stage) when their GNN
-  configs are shape-identical.
+  configs are shape-identical;
+* the per-drain-mix **merged-group LRU** of ``score_many``: the device
+  skeleton stack of a set of structures, its banding and its parent bound.
 
 PyTorch runs eagerly, so the JAX package's trace caches have no counterpart.
 ``deferred=True`` returns a ``DeferredResult`` once the forward is queued on
-the device, before the results are copied to the host.
+the device, before the results are copied to the host.  Two JAX features
+have no counterpart yet: buffer donation (PyTorch frees a chunk's inputs when
+the last reference goes) and the ``add_hook`` / ``_before`` seam (ROADMAP.md
+queue 1, item 7).
 """
 
 from __future__ import annotations
@@ -24,14 +30,19 @@ from __future__ import annotations
 import warnings
 from collections import OrderedDict
 from collections.abc import Mapping
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import nn
-from repro_torch.core.gnn import apply_gnn_placed_members, apply_gnn_placed_stacked
+from repro_torch.core.gnn import (
+    apply_gnn_merged,
+    apply_gnn_placed_members,
+    apply_gnn_placed_stacked,
+)
 from repro_torch.core.graph import (
+    BatchBanding,
     JointGraph,
     QueryStatic,
     batch_graphs,
@@ -39,6 +50,8 @@ from repro_torch.core.graph import (
     build_a_place_batch,
     build_graph,
     build_graph_skeleton,
+    exact_banding_cached,
+    merge_graph_batches,
     query_static,
     skeleton_cache_key,
 )
@@ -225,6 +238,9 @@ class CostEstimator:
         self.policy = (policy if policy is not None else active_policy()).validate()
         self._skeletons: "OrderedDict[Tuple, Tuple[JointGraph, JointGraph, QueryStatic]]" = OrderedDict()
         self._stacked: Dict[Tuple[str, ...], Optional[StackedEnsembles]] = {}
+        # cross-query drain mixes: frozenset of structure keys -> (key ->
+        # skeleton index, device skeleton stack, banding, max_parents)
+        self._merged_groups: "OrderedDict[frozenset, Tuple]" = OrderedDict()
         self._params: Dict[str, object] = {}  # metric -> params on self.device
         self._optimizer = None
 
@@ -316,9 +332,14 @@ class CostEstimator:
 
     # -- placement scoring --------------------------------------------------------
 
-    def _skeleton_entry(self, query, cluster) -> Tuple[JointGraph, JointGraph, QueryStatic]:
-        """Cached (host skeleton, device skeleton, QueryStatic) for one pair."""
-        key = skeleton_cache_key(query, cluster)
+    def _skeleton_entry(self, query, cluster, key: Optional[Tuple] = None) -> Tuple[JointGraph, JointGraph, QueryStatic]:
+        """Cached (host skeleton, device skeleton, QueryStatic) for one pair.
+
+        The host copy feeds the merged path (stacking on the host before one
+        device copy), the device copy the placed forwards.  ``key`` lets a
+        caller that already computed ``skeleton_cache_key`` skip it."""
+        if key is None:
+            key = skeleton_cache_key(query, cluster)
         hit = self._skeletons.get(key)
         if hit is not None:
             self._skeletons.move_to_end(key)
@@ -402,6 +423,250 @@ class CostEstimator:
         return self.scorer(query, cluster, metrics, deferred=deferred)(
             np.asarray(assignments, dtype=np.int64)
         )
+
+    # -- cross-query broadcast batches -------------------------------------------
+
+    def supports_cross_query(self, metrics: Optional[Sequence[str]] = None) -> bool:
+        """Whether ``metrics`` can ride one merged cross-query forward.
+
+        Requires a fusable ensemble stack (shape-identical GNN configs) with
+        the 3-stage structure (``traditional_mp`` models aggregate over
+        rounds, not stages).  ``estimate_many`` / ``score_many`` fall back to
+        per-request answers when this is False.
+        """
+        metrics = tuple(metrics) if metrics is not None else tuple(self.models)
+        stacked = self._stacked_for(metrics)
+        return stacked is not None and not stacked.cfgs[0].traditional_mp
+
+    @staticmethod
+    def _host_graphs(batch) -> JointGraph:
+        """A batch as a numpy ``JointGraph`` with a batch axis (single graphs promoted)."""
+        if not isinstance(batch, JointGraph):
+            batch = batch_graphs([build_graph(t.query, t.cluster, t.placement) for t in batch])
+        g = JointGraph(*[np.asarray(x) for x in batch])
+        return JointGraph(*[x[None] for x in g]) if g.op_x.ndim == 2 else g
+
+    @staticmethod
+    def _split_back(launched, stacked: StackedEnsembles, metrics, sizes) -> List[Dict[str, np.ndarray]]:
+        """Per-chunk raw outputs -> votes, concatenated, then split per ``sizes``."""
+        parts = [_split_votes(_host(raw), stacked) for raw in launched]
+        merged = {m: np.concatenate([p[m] for p in parts]) for m in metrics}
+        out, off = [], 0
+        for size in sizes:
+            out.append({m: merged[m][off : off + size] for m in metrics})
+            off += size
+        return out
+
+    def _merged_forward(
+        self,
+        merged: JointGraph,
+        sizes: Sequence[int],
+        metrics: Tuple[str, ...],
+        max_rows: Optional[int],
+        deferred: bool = False,
+    ) -> List[Dict[str, np.ndarray]]:
+        """One stacked forward per ``max_rows`` chunk of a merged host batch.
+
+        Each chunk gets the signature-exact, row-trimmed banding of the
+        structures it contains (``exact_banding_cached``), so stage-3 work
+        tracks real rows: the fused ``sweep`` plan, one ``mp_sweep`` launch
+        per chunk under ``use_pallas``.  Chunks are not bucket-padded: the
+        forward runs eagerly, so a power-of-two row count would only add
+        work.  Every chunk is queued on the device before any is read back;
+        answers are split back per source batch.
+        """
+        stacked = self._stacked_for(metrics)
+        total = int(merged.op_x.shape[0])
+        step = max_rows if max_rows else total
+        launched: List[torch.Tensor] = []
+        for s in range(0, total, step):
+            chunk = JointGraph(*[x[s : s + step] for x in merged])
+            banding = exact_banding_cached(chunk)
+            with torch.no_grad():
+                launched.append(
+                    forward_ensemble(stacked.params, graphs_to_device(chunk, self.device), stacked.cfgs[0], banding)
+                )
+        return _maybe_defer(lambda: self._split_back(launched, stacked, metrics, sizes), deferred)
+
+    def estimate_many(
+        self,
+        batches: Sequence,
+        metrics: Optional[Sequence[str]] = None,
+        max_rows: Optional[int] = None,
+        deferred: bool = False,
+    ) -> List[Dict[str, np.ndarray]]:
+        """``estimate`` for N independent batches through ONE fused forward.
+
+        ``batches`` entries are batched ``JointGraph``s (numpy; single graphs
+        are promoted, empty batches allowed) or trace sequences; structures
+        may differ freely, since every graph shares the canonical padded
+        layout: the batches concatenate along the batch axis and one stacked
+        forward per ``max_rows`` chunk answers everything.  Returns one
+        metric -> predictions dict per input batch, order-aligned.
+        """
+        metrics = tuple(metrics) if metrics is not None else tuple(self.models)
+        batches = list(batches)
+        if not batches:
+            return _maybe_defer(lambda: [], deferred)
+        host = [self._host_graphs(b) for b in batches]
+        if sum(int(g.op_x.shape[0]) for g in host) == 0:
+            raise ValueError("no graphs to estimate")
+        if not self.supports_cross_query(metrics):
+            # heterogeneous configs: per-batch fallback, chunked like the
+            # merged path; every chunk is queued before any is read back,
+            # and the finiteness guard runs inside the delegated
+            # ``estimate`` calls
+            pendings: List[Optional[List[DeferredResult]]] = []
+            for g in host:
+                total = int(g.op_x.shape[0])
+                if total == 0:  # filled in below with zero-width answers
+                    pendings.append(None)
+                    continue
+                step = max_rows if max_rows else total
+                pendings.append([
+                    self.estimate(JointGraph(*[x[s : s + step] for x in g]), metrics, deferred=True)
+                    for s in range(0, total, step)
+                ])
+
+            def finalize_fallback() -> List[Dict[str, np.ndarray]]:
+                out: List[Optional[Dict[str, np.ndarray]]] = []
+                for parts in pendings:
+                    if parts is None:
+                        out.append(None)
+                        continue
+                    done = [p.result() for p in parts]
+                    out.append({m: np.concatenate([d[m] for d in done]) for m in metrics})
+                template = next(o for o in out if o is not None)
+                return [o if o is not None else {m: template[m][:0] for m in metrics} for o in out]
+
+            return _maybe_defer(finalize_fallback, deferred)
+        merged, sizes = merge_graph_batches(host)
+        pending = self._merged_forward(merged, sizes, metrics, max_rows, deferred=True)
+        return self._finish("estimate_many", pending.result, deferred)
+
+    def score_many(
+        self,
+        requests: Sequence[Tuple],
+        metrics: Optional[Sequence[str]] = None,
+        max_rows: Optional[int] = None,
+        keys: Optional[Sequence[Tuple]] = None,
+        deferred: bool = False,
+    ) -> List[Dict[str, np.ndarray]]:
+        """``score`` for N (query, cluster, assignments) requests through ONE
+        fused forward.
+
+        Requests are regrouped structure-major: each structure contributes
+        its LRU-cached skeleton once plus all its candidate rows, and one
+        stacked ``apply_gnn_merged`` forward per ``max_rows`` chunk scores
+        every (metric, member, candidate) triple.  ``keys`` optionally
+        carries precomputed ``skeleton_cache_key``s.  Returns one metric ->
+        (N_i,) dict per request, order-aligned; answers equal per-request
+        ``score`` to float tolerance (the same math in another association
+        order).
+        """
+        metrics = tuple(metrics) if metrics is not None else tuple(self.models)
+        requests = list(requests)
+        if not requests:
+            return _maybe_defer(lambda: [], deferred)
+        if not self.supports_cross_query(metrics):
+            # the finiteness guard runs inside the delegated ``score`` calls
+            per_req = [self.score(q, c, a, metrics, deferred=True) for q, c, a in requests]
+            return _maybe_defer(lambda: [p.result() for p in per_req], deferred)
+        stacked = self._stacked_for(metrics)
+        if keys is None:
+            keys = [skeleton_cache_key(q, c) for q, c, _ in requests]
+
+        # regroup structure-major: one skeleton + one concatenated candidate
+        # block per structure; remember each request's slice for the split
+        groups: "OrderedDict[Tuple, List[int]]" = OrderedDict()
+        mats = []
+        for i, (q, c, a) in enumerate(requests):
+            a = np.asarray(a, dtype=np.int64)
+            if len(a) == 0:
+                raise ValueError("no candidates to score")
+            mats.append(a)
+            groups.setdefault(keys[i], []).append(i)
+
+        index_of, skels_dev, banding, max_parents = self._merged_group_for(requests, groups)
+        blocks, ids = [], []
+        for key, idxs in groups.items():
+            q, c, _ = requests[idxs[0]]
+            block = build_a_place_batch(q, c, np.concatenate([mats[i] for i in idxs]))
+            blocks.append(block)
+            ids.append(np.full(len(block), index_of[key], dtype=np.int64))
+        pending = self._merged_placements_forward(
+            skels_dev, banding, max_parents, np.concatenate(ids), np.concatenate(blocks),
+            [len(b) for b in blocks], stacked, metrics, max_rows, deferred=True,
+        )
+
+        def finalize() -> List[Dict[str, np.ndarray]]:
+            # split each structure's block back onto its requests, in order
+            out: List[Optional[Dict[str, np.ndarray]]] = [None] * len(requests)
+            for g_out, idxs in zip(pending.result(), groups.values()):
+                off = 0
+                for i in idxs:
+                    n = len(mats[i])
+                    out[i] = {m: g_out[m][off : off + n] for m in metrics}
+                    off += n
+            return out
+
+        return self._finish("score_many", finalize, deferred)
+
+    def _merged_group_for(self, requests, groups) -> Tuple:
+        """(key -> skeleton index, device skeleton stack, banding,
+        max_parents) for one drain mix.
+
+        Keyed on the *set* of structure keys (drains of one recurring mix may
+        arrive in any order, so the index mapping is part of the entry); the
+        mix pays stacking, banding, the in-degree check and the skeleton
+        device copy once, in an LRU of ``policy.merged_group_cache_size``.
+        """
+        mix_key = frozenset(groups)
+        hit = self._merged_groups.get(mix_key)
+        if hit is not None:
+            self._merged_groups.move_to_end(mix_key)
+            return hit
+        index_of = {key: i for i, key in enumerate(groups)}
+        skels = batch_graphs(
+            [self._skeleton_entry(*requests[idxs[0]][:2], key)[0] for key, idxs in groups.items()]
+        )
+        banding = exact_banding_cached(skels)
+        max_parents = int(np.asarray(skels.a_flow).sum(axis=-2).max(initial=1))
+        entry = (index_of, graphs_to_device(skels, self.device), banding, max_parents)
+        self._merged_groups[mix_key] = entry
+        while len(self._merged_groups) > self.policy.merged_group_cache_size:
+            self._merged_groups.popitem(last=False)
+        return entry
+
+    def _merged_placements_forward(
+        self,
+        skels_dev: JointGraph,
+        banding: BatchBanding,
+        max_parents: int,
+        skel_id: np.ndarray,
+        a_place: np.ndarray,
+        sizes: Sequence[int],
+        stacked: StackedEnsembles,
+        metrics: Tuple[str, ...],
+        max_rows: Optional[int],
+        deferred: bool = False,
+    ) -> List[Dict[str, np.ndarray]]:
+        """Chunked ``apply_gnn_merged`` over a structure-major placement batch.
+
+        Each ``max_rows`` chunk (not bucket-padded, as in ``_merged_forward``)
+        is queued on the device before any is read back.
+        """
+        total = int(a_place.shape[0])
+        step = max_rows if max_rows else total
+        launched: List[torch.Tensor] = []
+        for s in range(0, total, step):
+            with torch.no_grad():
+                launched.append(apply_gnn_merged(
+                    stacked.params, skels_dev, torch.as_tensor(skel_id[s : s + step], device=self.device),
+                    torch.as_tensor(a_place[s : s + step], device=self.device), stacked.cfgs[0].gnn, banding,
+                    max_parents,
+                ))
+        return _maybe_defer(lambda: self._split_back(launched, stacked, metrics, sizes), deferred)
 
     def optimize(self, query, cluster, target_metric: str = "latency_p", **kwargs):
         """Cost-based placement search (paper SV): sample -> score -> argopt.

@@ -26,6 +26,8 @@ class DispatchPolicy:
     banding_cache_size: int = 512
     #: Device-resident (query, cluster) skeleton entries of a ``CostEstimator``.
     skeleton_cache_size: int = 64
+    #: Merged cross-query groups (device skeleton stacks) of ``score_many``.
+    merged_group_cache_size: int = 32
 
     def validate(self) -> "DispatchPolicy":
         """Raise ``ValueError`` on an out-of-range field; return self."""
@@ -42,6 +44,7 @@ class DispatchPolicy:
         _positive("refine_top")
         _positive("banding_cache_size")
         _positive("skeleton_cache_size")
+        _positive("merged_group_cache_size")
         return self
 
 

@@ -12,14 +12,19 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.core import gnn
 from repro_torch.core.gnn import GNNConfig
-from repro_torch.core.graph import SLOT_RANGES
+from repro_torch.core.graph import SLOT_RANGES, batch_graphs, build_graph, exact_banding
 from repro_torch.core.model import ALL_METRICS, REGRESSION_METRICS, CostModelConfig, init_cost_model
 from repro_torch.dsps import WorkloadGenerator
 from repro_torch.kernels.banked_mlp import ops as bank_ops
 from repro_torch.kernels.banked_mlp.ref import banked_mlp_slotted_ref
+from repro_torch.kernels.mp_sweep import ops as sweep_ops
+from repro_torch.kernels.mp_sweep.ref import mp_sweep_ref
 from repro_torch.kernels.mp_update import ops as mp_ops
 from repro_torch.kernels.mp_update.ref import mp_update_ref
+from repro_torch.kernels.seg_gather import ops as seg_ops
+from repro_torch.kernels.seg_gather.ref import gather_sum_ref, segment_sum_ref
 from repro_torch.placement.enumerate import sample_assignment_matrix
 from repro_torch.serve.estimator import CostEstimator
 
@@ -112,3 +117,109 @@ def test_estimator_on_card_matches_cpu(cuda):
             np.testing.assert_allclose(got[m], want[m], rtol=1e-4, atol=1e-6, err_msg=m)
     after = (bank_ops.banked_mlp_slotted.launches, mp_ops.mp_update.launches)
     assert after[0] > before[0] and after[1] > before[1]
+
+
+def _corpus_sweep_inputs(n, device):
+    """The trimmed exact-banding layout of an n-trace corpus batch."""
+    traces = WorkloadGenerator(seed=0).corpus(n)
+    g = batch_graphs([build_graph(t.query, t.cluster, t.placement) for t in traces])
+    band = exact_banding(g)
+    rows = np.asarray(band.rows)
+    a = torch.from_numpy(np.ascontiguousarray(g.a_flow[:, rows][:, :, rows])).to(device)
+    depth = torch.from_numpy(np.ascontiguousarray(g.op_depth[:, rows])).to(device)
+    mask = torch.from_numpy(np.ascontiguousarray(g.op_mask[:, rows])).to(device)
+    return a, depth, mask, gnn._banded_plan(band, band.ranges).levels
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["corpus", "random"])
+def test_mp_sweep_kernel_matches_plain(cuda, case):
+    """The corpus's exact banding (parent_rows reaching into the span from
+    level 3 on), and random graphs whose edges ignore depth under levels
+    whose parent bound covers their own span; one launch each."""
+    E, H = 15, 64
+    gen = torch.Generator().manual_seed(11)
+    p = _bank(gen, E, 5, 2 * H, H, cuda)
+    if case == "corpus":
+        a, depth, mask, levels = _corpus_sweep_inputs(512, cuda)
+        assert any(lv[3] > lv[1][0] for lv in levels)
+    else:
+        B, N = 300, 12
+        a = (torch.rand((B, N, N), generator=gen) > 0.6).float().to(cuda)
+        depth = torch.randint(1, 4, (B, N), generator=gen, dtype=torch.int32).to(cuda)
+        mask = (torch.rand((B, N), generator=gen) > 0.2).float().to(cuda)
+        levels = (
+            (1, (0, 12), SLOT_RANGES, 12),
+            (2, (3, 11), ((1, 3, 7), (3, 7, 9), (2, 9, 11)), 11),
+            (3, (3, 12), ((1, 3, 7), (3, 7, 9), (2, 9, 11), (4, 11, 12)), 12),
+        )
+    h = torch.randn((E, a.shape[0], a.shape[1], H), generator=gen).to(cuda)
+    before = sweep_ops.mp_sweep.launches
+    got = sweep_ops.mp_sweep(p, h, a, depth, mask, levels)
+    torch.cuda.synchronize()
+    assert sweep_ops.mp_sweep.launches == before + 1
+    torch.testing.assert_close(got, mp_sweep_ref(p, h, a, depth, mask, levels), **TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("P,column_slice", [(1, False), (2, True)])
+def test_gather_sum_kernel_matches_plain(cuda, P, column_slice):
+    E, B, N, H = 15, 1024, 11, 64
+    gen = torch.Generator().manual_seed(P)
+    h = torch.randn((E, B, N, H), generator=gen).to(cuda)
+    idx = torch.randint(0, N, (B, N, P), generator=gen).to(cuda)
+    w = (torch.rand((B, N, P), generator=gen) > 0.3).float().to(cuda)
+    if column_slice:
+        idx, w = idx[:, 3:10], w[:, 3:10]
+        assert not idx.is_contiguous()
+    got = seg_ops.gather_sum(h, idx, w)
+    again = seg_ops.gather_sum(h, idx, w)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, gather_sum_ref(h, idx, w), **TOL)
+    assert torch.equal(got, again)  # no atomics: two runs are bitwise equal
+
+
+@pytest.mark.gpu
+def test_segment_sum_kernel_matches_plain(cuda):
+    E, B, N, H, S = 15, 1024, 11, 64, 8
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn((E, B, N, H), generator=gen).to(cuda)
+    seg = torch.randint(0, S, (B, N), generator=gen).to(cuda)
+    before = seg_ops.segment_sum.launches
+    got = seg_ops.segment_sum(x, seg, S)
+    again = seg_ops.segment_sum(x, seg, S)
+    torch.cuda.synchronize()
+    assert seg_ops.segment_sum.launches == before + 2
+    torch.testing.assert_close(got, segment_sum_ref(x, seg, S), **TOL)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+def test_cross_query_paths_on_card_match_cpu(cuda):
+    """``estimate_many`` (one mp_sweep launch, no mp_update) and
+    ``score_many`` (seg_gather launches, no mp_update / mp_sweep) on the
+    card against the same estimator on the CPU."""
+    cfg = GNNConfig(hidden=64, use_pallas=True)
+    gen = torch.Generator().manual_seed(0)
+    models = {m: (init_cost_model(gen, CostModelConfig(metric=m, gnn=cfg)), CostModelConfig(metric=m, gnn=cfg))
+              for m in ALL_METRICS}
+    gpu, cpu = CostEstimator(models), CostEstimator(models, device="cpu")
+    workload = WorkloadGenerator(seed=3)
+    traces = workload.corpus(96)
+    batches = [traces[:40], traces[40:41], traces[41:]]
+    counters = (mp_ops.mp_update, sweep_ops.mp_sweep, seg_ops.gather_sum, seg_ops.segment_sum)
+    before = [k.launches for k in counters]
+    got, want = gpu.estimate_many(batches), cpu.estimate_many(batches)
+    moved = [k.launches - b for k, b in zip(counters, before)]
+    assert moved == [0, 1, 0, 0]
+    reqs = []
+    for i, kind in enumerate(("linear", "two_way", "three_way", "two_way")):
+        q, c = workload.query(kind=kind, name=f"r{i}"), workload.cluster(4 + i)
+        reqs.append((q, c, sample_assignment_matrix(q, c, 50, np.random.default_rng(i))))
+    before = [k.launches for k in counters]
+    got_s, want_s = gpu.score_many(reqs), cpu.score_many(reqs)
+    moved = [k.launches - b for k, b in zip(counters, before)]
+    assert moved[0] == moved[1] == 0 and moved[2] > 1 and moved[3] == 1
+    for g_, w_ in zip(got + got_s, want + want_s):
+        for m in REGRESSION_METRICS:
+            np.testing.assert_allclose(g_[m], w_[m], rtol=1e-4, atol=1e-6, err_msg=m)

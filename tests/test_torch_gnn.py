@@ -15,6 +15,7 @@ torch = pytest.importorskip("torch")
 import jax
 import jax.numpy as jnp
 
+import repro.core.bucketing as jbucketing
 import repro.core.gnn as jgnn
 import repro.core.graph as jgraph
 from repro.dsps import WorkloadGenerator as JaxGenerator
@@ -24,7 +25,9 @@ from repro_torch.core import gnn, graph
 from repro_torch.core.model import CostModelConfig, init_cost_model
 from repro_torch.dsps import WorkloadGenerator
 from repro_torch.kernels.banked_mlp import ops as bank_ops
+from repro_torch.kernels.mp_sweep import ops as sweep_ops
 from repro_torch.kernels.mp_update import ops as mp_ops
+from repro_torch.kernels.seg_gather import ops as seg_ops
 from repro_torch.placement.enumerate import sample_assignment_matrix
 from repro_torch.serve.estimator import CostEstimator
 
@@ -160,22 +163,37 @@ def test_apply_gnn_placed_stacked_matches_jax(use_pallas, lowering, chunk, monke
 
 
 def test_unported_paths_raise_naming_the_roadmap():
+    """What the port still lacks raises, naming the ROADMAP item: the
+    traditional-MP ablation; a 3-layer update bank under ``use_pallas``
+    raises on every plan (scan, and the banded fallback of a banding)."""
+    from repro_torch.core.model import forward_ensemble
+
     traces = WorkloadGenerator(seed=3).corpus(4)
     g = graph.batch_graphs([graph.build_graph(t.query, t.cluster, t.placement) for t in traces])
     params = nn.params_from_numpy(_jax_params())
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        gnn.apply_gnn_batch(params, _as_torch(g), gnn.GNNConfig(hidden=16), graph.batch_banding(g))
+        gnn.apply_gnn_traditional(params, _as_torch(g), gnn.GNNConfig(hidden=16))
+    ablation = CostModelConfig(gnn=gnn.GNNConfig(hidden=16), n_ensemble=1, traditional_mp=True)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        gnn.apply_gnn_merged()
+        forward_ensemble(nn.members(params), _as_torch(g), ablation)
     deep = gnn.GNNConfig(hidden=16, update_layers=3, use_pallas=True)
     deep_params = init_cost_model(torch.Generator().manual_seed(0), CostModelConfig(gnn=deep, n_ensemble=1))
     with pytest.raises(NotImplementedError, match="exactly two"):
         gnn.apply_gnn_stacked(deep_params, _as_torch(g), deep)
+    with pytest.raises(NotImplementedError, match="exactly two"):
+        gnn.apply_gnn_stacked(deep_params, _as_torch(g), deep, graph.exact_banding(g))
 
 
 def _count_calls(monkeypatch):
     """Count wrapper calls (the CPU runs the plain versions: no launches)."""
-    counts = {"banked_mlp": 0, "mp_update": 0}
+    wrapped = {
+        "banked_mlp": (bank_ops, "banked_mlp_slotted"),
+        "mp_update": (mp_ops, "mp_update"),
+        "mp_sweep": (sweep_ops, "mp_sweep"),
+        "gather_sum": (seg_ops, "gather_sum"),
+        "segment_sum": (seg_ops, "segment_sum"),
+    }
+    counts = dict.fromkeys(wrapped, 0)
 
     def counting(name, fn):
         def wrapper(*a, **k):
@@ -184,8 +202,8 @@ def _count_calls(monkeypatch):
 
         return wrapper
 
-    monkeypatch.setattr(bank_ops, "banked_mlp_slotted", counting("banked_mlp", bank_ops.banked_mlp_slotted))
-    monkeypatch.setattr(mp_ops, "mp_update", counting("mp_update", mp_ops.mp_update))
+    for name, (mod, attr) in wrapped.items():
+        monkeypatch.setattr(mod, attr, counting(name, getattr(mod, attr)))
     return counts
 
 
@@ -193,14 +211,7 @@ def _count_calls(monkeypatch):
 def test_kernel_calls_per_score_do_not_depend_on_members(n_ensemble, monkeypatch):
     """E = 2 and E = 6 stacked members: the same kernel-wrapper calls per
     ``score`` forward, because every wrapper takes the member axis."""
-    cfg = gnn.GNNConfig(hidden=16, use_pallas=True)
-    gen = torch.Generator().manual_seed(0)
-    models = {
-        m: (init_cost_model(gen, CostModelConfig(metric=m, gnn=cfg, n_ensemble=n_ensemble)),
-            CostModelConfig(metric=m, gnn=cfg, n_ensemble=n_ensemble))
-        for m in ("latency_p", "success")
-    }
-    est = CostEstimator(models, device="cpu")
+    est = _estimator(n_ensemble)
     q, c, _, _, static = _placed_inputs(kind="two_way", n=2, seed=9)
     assign = sample_assignment_matrix(q, c, 16, np.random.default_rng(0))
     est.score(q, c, assign)  # warm the skeleton cache
@@ -209,5 +220,144 @@ def test_kernel_calls_per_score_do_not_depend_on_members(n_ensemble, monkeypatch
     est.score(q, c, assign)
     levels = sum(1 for level in static.updates if level)
     # stage 0 (op_enc, hw_enc) + stages 1-2 (hw_upd, op_upd); one mp_update per level
-    assert counts == {"banked_mlp": 4, "mp_update": levels}
+    assert counts == {"banked_mlp": 4, "mp_update": levels, "mp_sweep": 0, "gather_sum": 0, "segment_sum": 0}
     assert launches == (0, 0)
+
+
+def _banded_corpus(seed=7, n=12):
+    traces = JaxGenerator(seed=seed).corpus(n)
+    g = jgraph.pad_batch(
+        jgraph.batch_graphs([jgraph.build_graph(t.query, t.cluster, t.placement) for t in traces]),
+        jgraph.bucket_size(n),
+    )
+    return g
+
+
+@pytest.mark.parametrize("use_pallas,lowering", ROUTES)
+@pytest.mark.parametrize("flavor", ["batch_banding", "exact_banding"])
+def test_apply_gnn_batch_banded_matches_jax(use_pallas, lowering, flavor, monkeypatch):
+    """The fused ``sweep`` plan, on the conservative and on the trimmed exact
+    banding (the port computes the same banding from its own copy)."""
+    jcfg, cfg = _route(monkeypatch, use_pallas, lowering)
+    g = _banded_corpus()
+    jband = getattr(jbucketing, flavor)(g)
+    band = getattr(graph, flavor)(graph.JointGraph(*g))
+    assert band == jband and len(band.levels) > 1
+    assert (band.rows is not None) == (flavor == "exact_banding")
+    p = _jax_params(4)
+    fwd = jax.jit(jgnn.apply_gnn_batch, static_argnums=(2, 3))
+    want = np.asarray(fwd(p, jax.tree_util.tree_map(jnp.asarray, g), jcfg, jband))
+    got = gnn.apply_gnn_batch(nn.params_from_numpy(p), _as_torch(g), cfg, band)
+    assert got.shape == want.shape == (g.op_x.shape[0], 1)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("use_pallas,lowering", ROUTES)
+def test_apply_gnn_stacked_exact_banding_matches_jax(use_pallas, lowering, monkeypatch):
+    jcfg, cfg = _route(monkeypatch, use_pallas, lowering)
+    g = _banded_corpus(seed=11)
+    band = jbucketing.exact_banding(g)
+    p = _jax_params(5, members=3)
+    fwd = jax.jit(jgnn.apply_gnn_stacked, static_argnums=(2, 3))
+    want = np.asarray(fwd(p, jax.tree_util.tree_map(jnp.asarray, g), jcfg, band))
+    got = gnn.apply_gnn_stacked(nn.params_from_numpy(p), _as_torch(g), cfg, band)
+    assert got.shape == want.shape == (3, g.op_x.shape[0])
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    # the banded forward answers what the full-depth scan answers
+    np.testing.assert_allclose(got.numpy(), gnn.apply_gnn_stacked(nn.params_from_numpy(p), _as_torch(g), cfg).numpy(), **TOL)
+
+
+def _merged_inputs(seed=13, n=6, kinds=("linear", "two_way", "three_way", "two_way")):
+    """S distinct structures on one cluster, n sampled placements each."""
+    gen = JaxGenerator(seed=seed)
+    c = gen.cluster(5)
+    qs = [gen.query(kind=k, name=f"m{i}") for i, k in enumerate(kinds)]
+    rng = np.random.default_rng(seed)
+    skels = jgraph.batch_graphs([jgraph.build_graph_skeleton(q, c) for q in qs])
+    blocks, ids = [], []
+    for i, q in enumerate(qs):
+        a = jax_sample(q, c, n, rng, max_tries_factor=400)
+        blocks.append(jgraph.build_a_place_batch(q, c, a))
+        ids.append(np.full(len(a), i, dtype=np.int64))
+    band = jbucketing.exact_banding(skels)
+    max_parents = int(np.asarray(skels.a_flow).sum(axis=-2).max(initial=1))
+    return skels, np.concatenate(ids), np.concatenate(blocks), band, max_parents
+
+
+@pytest.mark.parametrize("use_pallas,lowering", ROUTES)
+def test_apply_gnn_merged_matches_jax(use_pallas, lowering, monkeypatch):
+    jcfg, cfg = _route(monkeypatch, use_pallas, lowering)
+    skels, skel_id, a_place, band, max_parents = _merged_inputs()
+    assert band.rows is not None and max_parents == 2
+    p = _jax_params(6, members=2)
+    fwd = jax.jit(jgnn.apply_gnn_merged, static_argnums=(4, 5, 6))
+    want = np.asarray(
+        fwd(p, jax.tree_util.tree_map(jnp.asarray, skels), jnp.asarray(skel_id), jnp.asarray(a_place), jcfg, band, max_parents)
+    )
+    got = gnn.apply_gnn_merged(
+        nn.params_from_numpy(p), _as_torch(skels), torch.from_numpy(skel_id), torch.from_numpy(a_place),
+        cfg, band, max_parents,
+    )
+    assert got.shape == want.shape == (2, len(skel_id))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def test_validate_merged_parents_raises():
+    """A parent bound below the stack's true in-degree raises instead of
+    silently dropping parents, in the engine and in the check itself."""
+    skels, skel_id, a_place, band, max_parents = _merged_inputs(seed=17)
+    params = nn.params_from_numpy(_jax_params(0, members=1))
+    with pytest.raises(ValueError, match="in-degree .* > max_parents"):
+        gnn.apply_gnn_merged(
+            params, _as_torch(skels), torch.from_numpy(skel_id), torch.from_numpy(a_place),
+            gnn.GNNConfig(hidden=16), band, max_parents - 1,
+        )
+    with pytest.raises(ValueError, match="wrong sums"):
+        gnn.validate_merged_parents(torch.from_numpy(skels.a_flow), 0)
+    gnn.validate_merged_parents(skels.a_flow, max_parents)  # the exact bound passes
+
+
+def _estimator(n_ensemble, hidden=16):
+    """A CPU estimator over two 2-layer ``use_pallas`` metric ensembles."""
+    cfg = gnn.GNNConfig(hidden=hidden, use_pallas=True)
+    gen = torch.Generator().manual_seed(0)
+    models = {
+        m: (init_cost_model(gen, CostModelConfig(metric=m, gnn=cfg, n_ensemble=n_ensemble)),
+            CostModelConfig(metric=m, gnn=cfg, n_ensemble=n_ensemble))
+        for m in ("latency_p", "success")
+    }
+    return CostEstimator(models, device="cpu")
+
+
+@pytest.mark.parametrize("n_ensemble", [1, 3])
+def test_one_sweep_call_per_banded_forward(n_ensemble, monkeypatch):
+    """``estimate_many`` (exact banding): one ``mp_sweep`` call and no
+    ``mp_update`` call per chunk, for E = 2 and E = 6 stacked members."""
+    est = _estimator(n_ensemble)
+    traces = WorkloadGenerator(seed=5).corpus(12)
+    batches = [traces[:5], traces[5:9], traces[9:]]
+    counts = _count_calls(monkeypatch)
+    est.estimate_many(batches)
+    assert counts == {"banked_mlp": 4, "mp_update": 0, "mp_sweep": 1, "gather_sum": 0, "segment_sum": 0}
+    counts.update(dict.fromkeys(counts, 0))
+    est.estimate_many(batches, max_rows=8)  # two chunks
+    assert counts["mp_sweep"] == 2 and counts["mp_update"] == 0
+
+
+@pytest.mark.parametrize("n_ensemble", [1, 3])
+def test_seg_gather_calls_per_merged_forward(n_ensemble, monkeypatch):
+    """``score_many``: one ``segment_sum``, one stage-2 ``gather_sum`` plus
+    one per stage-3 level, no ``mp_update`` / ``mp_sweep``, whatever E."""
+    est = _estimator(n_ensemble)
+    gen = WorkloadGenerator(seed=9)
+    reqs = []
+    for i, k in enumerate(("linear", "two_way", "three_way")):
+        q, c = gen.query(kind=k, name=f"c{i}"), gen.cluster(4)
+        reqs.append((q, c, sample_assignment_matrix(q, c, 5, np.random.default_rng(i))))
+    est.score_many(reqs)  # warm the merged group
+    (_, _, band, _), = est._merged_groups.values()
+    counts = _count_calls(monkeypatch)
+    est.score_many(reqs)
+    levels = len(band.levels)
+    # stage 0 (op_enc, hw_enc), stages 1-2 (hw_upd, op_upd), one op_upd per level
+    assert counts == {"banked_mlp": 4 + levels, "mp_update": 0, "mp_sweep": 0, "gather_sum": 1 + levels, "segment_sum": 1}

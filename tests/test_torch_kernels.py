@@ -18,11 +18,18 @@ import jax.numpy as jnp
 from repro import nn as jnn
 from repro.core.graph import SLOT_RANGES
 from repro.kernels.banked_mlp.ops import banked_mlp_slotted as jax_banked_mlp
+from repro.kernels.mp_sweep.ops import mp_sweep as jax_mp_sweep
 from repro.kernels.mp_update.ops import mp_update as jax_mp_update
+from repro.kernels.seg_gather.ops import gather_sum as jax_gather_sum, segment_sum as jax_segment_sum
 from repro_torch import nn
+from repro_torch.core import gnn
+from repro_torch.core.graph import batch_banding, batch_graphs, bucket_size, build_graph, exact_banding, pad_batch
+from repro_torch.dsps import WorkloadGenerator
 from repro_torch.kernels.banked_mlp import ops as bank_ops
 from repro_torch.kernels.banked_mlp.ref import banked_mlp_slotted_ref
+from repro_torch.kernels.mp_sweep import ops as sweep_ops
 from repro_torch.kernels.mp_update import ops as mp_ops
+from repro_torch.kernels.seg_gather import ops as seg_ops
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -157,3 +164,110 @@ def test_mp_update_wrapper_checks():
     with pytest.raises(ValueError, match="batch"):
         mp_ops.mp_update(p, h[None], a[:1], depth, mask, 1, SLOT_RANGES)
     assert mp_ops.mp_update.launches == 0
+
+
+def _banded_graphs(seed, trim, n=24):
+    """A bucket-padded corpus batch, its banding and the sweep's inputs in
+    the banding's layout (trimmed rows for ``exact_banding``)."""
+    traces = WorkloadGenerator(seed=seed).corpus(n)
+    g = pad_batch(batch_graphs([build_graph(t.query, t.cluster, t.placement) for t in traces]), bucket_size(n))
+    banding = exact_banding(g) if trim else batch_banding(g)
+    rows = np.arange(g.op_x.shape[1]) if banding.rows is None else np.asarray(banding.rows)
+    a = np.ascontiguousarray(g.a_flow[:, rows][:, :, rows])
+    depth = np.ascontiguousarray(g.op_depth[:, rows])
+    mask = np.ascontiguousarray(g.op_mask[:, rows])
+    levels = gnn._banded_plan(banding, banding.ranges or SLOT_RANGES).levels
+    return a, depth, mask, levels
+
+
+@pytest.mark.parametrize("trim", [False, True], ids=["batch_banding", "exact_banding"])
+def test_mp_sweep_matches_jax_on_corpus_bandings(lowering, trim):
+    """One sweep over a real banding table (trimmed: parent_rows reaches into
+    later levels' spans) == the JAX package's ``mp_sweep``, two members."""
+    E, H = 2, 16
+    a, depth, mask, levels = _banded_graphs(7, trim)
+    assert len(levels) > 1
+    p = _bank(3, 5, [2 * H, H, H], members=E)
+    h = np.random.default_rng(5).normal(size=(E, a.shape[0], a.shape[1], H)).astype(np.float32)
+    want = np.asarray(
+        jax.vmap(lambda pp, hh: jax_mp_sweep(pp, hh, *map(jnp.asarray, (a, depth, mask)), levels))(p, jnp.asarray(h))
+    )
+    got = sweep_ops.mp_sweep(nn.params_from_numpy(p), _t(h), _t(a), _t(depth), _t(mask), levels)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def test_mp_sweep_reads_the_state_before_each_level_writes(lowering):
+    """Random graphs whose edges ignore depth, and levels whose parent bound
+    covers their own span: every message of a level must come from the state
+    the previous level left, never from rows the level itself rewrites."""
+    H, B = 16, 4
+    p = _bank(9, 5, [2 * H, H, H])
+    h, a, depth, mask = _mp_inputs(13, B, H)
+    depth = np.random.default_rng(2).integers(1, 4, size=(B, 12)).astype(np.int32)
+    levels = (
+        (1, (0, 12), SLOT_RANGES, None),
+        (2, (3, 11), ((1, 3, 7), (3, 7, 9), (2, 9, 11)), 11),
+        (3, (3, 12), ((1, 3, 7), (3, 7, 9), (2, 9, 11), (4, 11, 12)), 12),
+    )
+    want = np.asarray(jax_mp_sweep(p, *map(jnp.asarray, (h, a, depth, mask)), levels))
+    got = sweep_ops.mp_sweep(nn.members(nn.params_from_numpy(p)), _t(h)[None], _t(a), _t(depth), _t(mask), levels)[0]
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def test_mp_sweep_wrapper_checks():
+    p = nn.members(nn.params_from_numpy(_bank(0, 5, [32, 16, 16])))
+    h, a, depth, mask = (_t(x) for x in _mp_inputs(0, 2, 16))
+    assert sweep_ops.mp_sweep(p, h[None], a, depth, mask, ()).data_ptr() == h.data_ptr()  # empty table: h itself
+    with pytest.raises(TypeError, match="int32"):
+        sweep_ops.mp_sweep(p, h[None], a, depth.long(), mask, ((1, None, SLOT_RANGES, None),))
+    with pytest.raises(ValueError, match="tile row span"):
+        sweep_ops.mp_sweep(p, h[None], a, depth, mask, ((1, (3, 7), ((1, 3, 6),), 3),))
+    with pytest.raises(ValueError, match="parent_rows"):
+        sweep_ops.mp_sweep(p, h[None], a, depth, mask, ((1, (3, 7), ((1, 3, 7),), 13),))
+    with pytest.raises(NotImplementedError, match="two layers"):
+        sweep_ops.mp_sweep({"layers": p["layers"] * 2}, h[None], a, depth, mask, ((1, None, SLOT_RANGES, None),))
+    assert sweep_ops.mp_sweep.launches == 0
+
+
+@pytest.mark.parametrize("P,column_slice", [(1, False), (2, False), (2, True)])
+def test_gather_sum_matches_jax(lowering, P, column_slice):
+    """Stage-2 (P = 1) and stage-3 (P = 2) gathers, two members; the stage-3
+    table as a column slice of the full (B, N, P) table (strided rows)."""
+    E, B, N, H = 2, 6, 12, 16
+    rng = np.random.default_rng(P)
+    h = rng.normal(size=(E, B, N, H)).astype(np.float32)
+    idx_full = rng.integers(0, N, size=(B, N, P)).astype(np.int64)
+    w_full = (rng.uniform(size=(B, N, P)) > 0.4).astype(np.float32)
+    s, e = (3, 11) if column_slice else (0, N)
+    want = np.asarray(
+        jax.vmap(lambda hh: jax_gather_sum(hh, jnp.asarray(idx_full[:, s:e]), jnp.asarray(w_full[:, s:e])))(jnp.asarray(h))
+    )
+    idx, w = _t(idx_full)[:, s:e], _t(w_full)[:, s:e]
+    assert idx.is_contiguous() is not column_slice
+    got = seg_ops.gather_sum(_t(h), idx, w)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def test_segment_sum_matches_jax(lowering):
+    E, B, N, H, S = 2, 6, 12, 16, 8
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(E, B, N, H)).astype(np.float32)
+    seg = rng.integers(0, S, size=(B, N)).astype(np.int64)
+    want = np.asarray(jax.vmap(lambda xx: jax_segment_sum(xx, jnp.asarray(seg), S))(jnp.asarray(x)))
+    got = seg_ops.segment_sum(_t(x), _t(seg), S)
+    assert got.shape == (E, B, S, H)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def test_seg_gather_wrapper_checks():
+    h = torch.zeros((1, 2, 12, 8))
+    idx = torch.zeros((2, 12, 2), dtype=torch.int64)
+    with pytest.raises(TypeError, match="int64"):
+        seg_ops.gather_sum(h, idx.int(), torch.ones((2, 12, 2)))
+    with pytest.raises(ValueError, match="w must be"):
+        seg_ops.gather_sum(h, idx, torch.ones((2, 12, 1)))
+    with pytest.raises(ValueError, match="seg has shape"):
+        seg_ops.segment_sum(h, idx[..., 0][:1], 8)
+    with pytest.raises(TypeError, match="float32"):
+        seg_ops.segment_sum(h.double(), idx[..., 0], 8)
+    assert seg_ops.gather_sum.launches == seg_ops.segment_sum.launches == 0

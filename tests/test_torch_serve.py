@@ -112,6 +112,72 @@ def test_score_and_optimize_match_jax(jax_models, estimators):
     np.testing.assert_allclose(r_ours.scores, r_jax.scores, rtol=1e-4, atol=1e-6)
 
 
+@pytest.fixture(params=["ref", "interpret"])
+def lowering(request, monkeypatch):
+    """The JAX package's two CPU lowerings: its jnp oracles and the Pallas
+    interpreter running the kernel bodies (mp_sweep, seg_gather, banked_mlp)."""
+    monkeypatch.setenv("REPRO_PALLAS_INTERPRET", "1" if request.param == "interpret" else "0")
+    return request.param
+
+
+def test_estimate_many_matches_jax(jax_models, estimators, lowering):
+    """Four batches of different structures and an empty one, merged: the
+    same answers as the JAX package's ``estimate_many`` and as the port's own
+    per-batch ``estimate``, in one chunk and in several."""
+    jest, est = estimators
+    traces = JaxGenerator(seed=61).corpus(14)
+    cuts = [(0, 4), (4, 5), (5, 5), (5, 11), (11, 14)]
+    batches = [jax_batch_graphs([jax_build_graph(t.query, t.cluster, t.placement) for t in traces[max(a, 0):b]])
+               if b > a else None for a, b in cuts]
+    batches[2] = type(batches[0])(*[np.asarray(x)[:0] for x in batches[0]])  # an empty batch
+    want = jest.estimate_many(batches)
+    mine = [JointGraph(*b) for b in batches]
+    logits = _logits(jax_models, jax.tree_util.tree_map(jnp.asarray, jax_batch_graphs(
+        [jax_build_graph(t.query, t.cluster, t.placement) for t in traces])))
+    serial = [est.estimate(g) if len(g.op_x) else None for g in mine]
+    for got in (est.estimate_many(mine), est.estimate_many(mine, max_rows=4), est.estimate_many(mine, deferred=True).result()):
+        assert len(got) == len(batches)
+        for g_, w_, s_, (lo, hi) in zip(got, want, serial, cuts):
+            if s_ is None:
+                assert all(v.shape == (0,) for v in g_.values())
+                continue
+            _assert_same(g_, w_, {m: v[:, lo:hi] for m, v in logits.items()})
+            _assert_same(g_, s_)
+
+
+def _mixed_requests(seed=67, cands=6):
+    """Five requests over four distinct (query, cluster) structures."""
+    gen = JaxGenerator(seed=seed)
+    rng = np.random.default_rng(seed)
+    pairs = [(gen.query(kind=k, name=f"mix{i}"), gen.cluster(3 + i)) for i, k in enumerate(("linear", "two_way", "three_way", "two_way"))]
+    pairs.append(pairs[1])  # a second request on one structure
+    return [(q, c, jax_sample(q, c, cands, rng, max_tries_factor=400)) for q, c in pairs]
+
+
+def test_score_many_matches_jax(jax_models, estimators, lowering):
+    """A mixed stream through the merged engine: the JAX package's
+    ``score_many`` answers, the port's per-request ``score``, in one chunk
+    and in several, with and without caller-computed keys."""
+    from repro_torch.core.graph import skeleton_cache_key
+
+    jest, est = estimators
+    reqs = _mixed_requests()
+    want = jest.score_many(reqs)
+    g = jax_batch_graphs([jax_build_graph(q, c, Placement.of(r)) for q, c, a in reqs for r in a])
+    logits = _logits(jax_models, jax.tree_util.tree_map(jnp.asarray, g))
+    offsets = np.cumsum([0] + [len(a) for _, _, a in reqs])
+    serial = [est.score(q, c, a) for q, c, a in reqs]
+    keys = [skeleton_cache_key(q, c) for q, c, _ in reqs]
+    runs = (est.score_many(reqs), est.score_many(reqs, max_rows=8, keys=keys), est.score_many(reqs, deferred=True).result())
+    for got in runs:
+        assert len(got) == len(reqs)
+        for i, (g_, w_, s_) in enumerate(zip(got, want, serial)):
+            lo = {m: v[:, offsets[i] : offsets[i + 1]] for m, v in logits.items()}
+            _assert_same(g_, w_, lo)
+            _assert_same(g_, s_, lo)
+    assert len(est._merged_groups) == 1  # one drain mix, built once
+
+
 def _tamper(directory, mutate):
     p = os.path.join(directory, "step_0000000000", "manifest.json")
     with open(p) as f:
