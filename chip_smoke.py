@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one CUDA card and check it.
+"""Drive the PyTorch port's serving paths on one CUDA card and check them.
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -15,11 +15,19 @@ Each phase prints one JSON line:
            the card's per-request answers and the same estimator on the CPU;
            every path runs with the launch counters set to 0 just before it and
            read just after, and fails if one of its kernels did not launch
+  lm       full-width RecurrentGemma-2B (26 layers, random bf16 weights from a
+           seed) serving 4 requests: 2048-token prompts prefilled into the
+           decode cache with serve_step, then 64 greedy decode steps; 18
+           linear_scan launches per forward; the same weights and token stream
+           with the plain scan on the card (logits against a stated bound); the
+           reduced model in fp32 on the card against the CPU; prefill and
+           decode times, the device split and peak memory
 then the kernel summary line, the card's name and power limit, and the status
 line.  Any failure exits nonzero; so does a machine without a CUDA device, or
 a directory that holds this script and nothing else of the repository.
 """
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -31,11 +39,17 @@ PEAK_FP32_FLOPS = 67e12  # H100 SXM, fp32 outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12  # H100 SXM HBM3
 TOL = 1e-5  # rtol = atol for kernel against plain version
 SERVE_RTOL = 1e-4
+LM_RTOL = 1e-4  # reduced LM in fp32, card against CPU (TF32 off)
+# The full-width kernel run against the plain-scan run: the kernel rounds as
+# the plain loop does, so the scans agree bitwise and the logits should too;
+# the bound allows one bf16 rounding (2**-8 relative) of the largest logit.
+LM_SCAN_REL = 2.0**-8
 # What each path is asked, and how often each kernel is timed.  Smaller values
 # (with DEVICE = "cpu" and the counters stubbed) give a quick dry run of the
 # script's control flow; the numbers it prints are then meaningless.
 SIZES = {"traces": 4096, "many_batch": 512, "drain_structures": 16, "drain_candidates": 256,
-         "score_candidates": 1024, "placed_candidates": 256, "timing_reps": 20}
+         "score_candidates": 1024, "placed_candidates": 256, "timing_reps": 20,
+         "lm_reduced": False, "lm_batch": 4, "lm_prompt": 2048, "lm_decode": 64}
 DEVICE = "cuda"
 
 
@@ -87,11 +101,17 @@ def main() -> int:
     from repro_torch.kernels.mp_sweep.ref import mp_sweep_ref
     from repro_torch.kernels.mp_update import ops as mp_ops
     from repro_torch.kernels.mp_update.ref import mp_update_ref
+    from repro_torch.kernels.rglru import ops as scan_ops
+    from repro_torch.kernels.rglru.ref import linear_scan_ref
     from repro_torch.kernels.seg_gather import ops as seg_ops
     from repro_torch.kernels.seg_gather.ref import gather_sum_ref, segment_sum_ref
     from repro_torch.placement.enumerate import sample_assignment_matrix
     from repro_torch.serve.estimator import CostEstimator, graphs_to_device
     from repro_torch.serve.stacking import stack_metric_models
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.params import count_params, materialize
+    from repro_torch.models.steps import make_serve_step
+    from repro_torch.models.transformer import forward as lm_forward, model_cache_defs, model_defs
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -316,6 +336,31 @@ def main() -> int:
                         1.0 * x16.numel(), 4.0 * (x16.numel() + seg_out.numel()) + 8.0 * host16.numel(),
                         library=lambda: seg_out.zero_().scatter_add_(2, seg_index, x16)))
     del h_hw16, h16, x16, seg_out
+
+    # linear_scan at the RG-LRU block's shapes in the lm phase: the prefill
+    # (batch, prompt, rnn_width), a decode step with h0 as the slice of a
+    # stacked (groups, batch, width) cache that the model hands over, and a
+    # ragged shape with h0 a strided column slice
+    lm_cfg = get_config("recurrentgemma-2b")
+    if SIZES["lm_reduced"]:
+        lm_cfg = reduced(lm_cfg)
+    width, lm_b = lm_cfg.rnn_width, SIZES["lm_batch"]
+
+    def scan_case(case, Bs, Ts, Ds, h0):
+        a = torch.rand((Bs, Ts, Ds), generator=rng).to(dev)
+        x = torch.randn((Bs, Ts, Ds), generator=rng).to(dev)
+        n = Bs * Ts * Ds
+        return compare("linear_scan", case, lambda: scan_ops.linear_scan(a, x, h0),
+                       lambda: linear_scan_ref(a, x, h0), 2.0 * n, 4.0 * (2 * n + Bs * Ds) + 4.0 * n)
+
+    stack_h = torch.randn((lm_cfg.n_groups, lm_b, width), generator=rng).to(dev)
+    rows.append(scan_case(f"prefill ({lm_b}, {SIZES['lm_prompt']}, {width})", lm_b, SIZES["lm_prompt"], width,
+                          torch.randn((lm_b, width), generator=rng).to(dev)))
+    last = lm_cfg.n_groups - 1
+    rows.append(scan_case(f"decode ({lm_b}, 1, {width}), h0 = stacked cache [{last}]", lm_b, 1, width, stack_h[last]))
+    wide = torch.randn((3, 3, 107), generator=rng).to(dev)
+    rows.append(scan_case("ragged (3, 37, 100), h0 a strided column slice", 3, 37, 100, wide[1, :, 5:105]))
+    del stack_h, wide
     torch.cuda.synchronize()
 
     # -- 3. serve: the port's paths through their entry points -----------------
@@ -323,7 +368,7 @@ def main() -> int:
     cpu = CostEstimator(models, device="cpu")
     counters = {"banked_mlp": bank_ops.banked_mlp_slotted, "mp_update": mp_ops.mp_update,
                 "mp_sweep": sweep_ops.mp_sweep, "gather_sum": seg_ops.gather_sum,
-                "segment_sum": seg_ops.segment_sum}
+                "segment_sum": seg_ops.segment_sum, "linear_scan": scan_ops.linear_scan}
     path_launches = {}  # path -> launches per kernel, counted from 0 over that path alone
 
     def counted(path, fn, need, never=()):
@@ -380,8 +425,10 @@ def main() -> int:
 
     def device_split(fn):
         """One warm call under ``torch.profiler``: host wall ms, the device's
-        busy ms (kernels and copies), its idle share, and the five costliest
-        device entries.  Busy time None: the profiler saw no device work."""
+        busy ms (kernels and copies), its idle share, how many device
+        entries (kernels and copies) it ran, the five costliest, and the
+        port's own kernels (launches, ms).  Busy time None: the profiler
+        saw no device work."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
@@ -394,9 +441,29 @@ def main() -> int:
         dev_rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
         busy = sum(e.self_device_time_total for e in dev_rows) / 1e3
         top = sorted(dev_rows, key=lambda e: -e.self_device_time_total)[:5]
+        ours = {e.key.split("(")[0].replace("repro_torch::", ""): [e.count, e.self_device_time_total / 1e3]
+                for e in dev_rows if "repro_torch::" in e.key}
         return {"wall_ms": wall, "device_busy_ms": busy if dev_rows else None,
                 "idle_share": 1.0 - busy / wall if dev_rows else None,
-                "top": [[e.key[:60], e.count, e.self_device_time_total / 1e3] for e in top]}
+                "device_entries": sum(e.count for e in dev_rows),
+                "top": [[e.key[:60], e.count, e.self_device_time_total / 1e3] for e in top], "port_kernels": ours}
+
+    def aten_ops(fn):
+        """How many aten operators one call dispatches (views included): the
+        host's share of a step that the device waits on."""
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        class Count(TorchDispatchMode):
+            n = 0
+
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                Count.n += 1
+                return func(*args, **(kwargs or {}))
+
+        with Count():
+            fn()
+        torch.cuda.synchronize()
+        return Count.n
 
     def same_runs(what, one, two):
         for x, y in zip(one if isinstance(one, list) else [one], two if isinstance(two, list) else [two]):
@@ -408,7 +475,6 @@ def main() -> int:
     serve = {"phase": "serve", "model": {"hidden": H, "metrics": len(ALL_METRICS), "members": E_MEMBERS,
                                          "use_pallas": True}}
     per_request = ("banked_mlp", "mp_update")
-    cross = ("mp_update", "mp_sweep", "gather_sum", "segment_sum")
 
     # estimate: 4096 traces, full-depth scan plan
     (est_out, ms_first), delta = counted("estimate", lambda: timed(lambda: est.estimate(host_batch)), per_request)
@@ -497,14 +563,127 @@ def main() -> int:
     serve["launches"] = path_launches
     serve["max_memory_allocated_bytes"] = int(torch.cuda.max_memory_allocated())
     emit(serve)
+    del est, cpu, stacked, g
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
 
-    # -- 4. kernel summary (the representative case: the most work on the path) -------
+    # -- 4. lm: RecurrentGemma-2B serving through make_serve_step -----------------
+    costream = ("banked_mlp", "mp_update", "mp_sweep", "gather_sum", "segment_sum")
+    n_rec = sum(k == "rec" for k in lm_cfg.pattern) * lm_cfg.n_groups + sum(k == "rec" for k in lm_cfg.suffix)
+    prompt, n_dec = SIZES["lm_prompt"], SIZES["lm_decode"]
+    max_seq = prompt + n_dec
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lm_params = materialize(torch.Generator(DEVICE).manual_seed(0), model_defs(lm_cfg), device=DEVICE)
+    torch.cuda.synchronize()
+    lm = {"phase": "lm", "model": {"arch": lm_cfg.name, "layers": lm_cfg.n_layers(), "rglru_layers": n_rec,
+                                   "d_model": lm_cfg.d_model, "vocab": lm_cfg.vocab,
+                                   "params": count_params(model_defs(lm_cfg)), "window": lm_cfg.window},
+          "requests": lm_b, "prompt": prompt, "decode_steps": n_dec, "max_seq": max_seq,
+          "init_s": time.perf_counter() - t0}
+    prompts = np.random.default_rng(0).integers(0, lm_cfg.vocab, (lm_b, prompt)).astype(np.int32)
+    step = make_serve_step(lm_cfg, device=DEVICE)
+    step_plain = make_serve_step(dataclasses.replace(lm_cfg, use_rglru_kernel=False), device=DEVICE)
+    empty_cache = materialize(None, model_cache_defs(lm_cfg, lm_b, max_seq), device=DEVICE)
+
+    def lm_step(path, fn, plain=False):
+        """One forward with the counters at 0: 18 linear_scan launches (one
+        per RG-LRU layer), none with the plain scan, no COSTREAM kernel."""
+        (out, ms), got = counted(path, lambda: timed(fn), () if plain else ("linear_scan",),
+                                 costream + (("linear_scan",) if plain else ()))
+        if not plain and got["linear_scan"] != n_rec:
+            raise AssertionError(f"{path}: {got['linear_scan']} linear_scan launches, want {n_rec}")
+        return out, ms
+
+    def leaves(tree):
+        return [leaf for _, leaf in nn.tree_leaves_with_paths(tree)]
+
+    def max_diff(pairs):
+        return max(float((a.float() - b.float().to(a.device)).abs().max()) for a, b in pairs)
+
+    def scan_bound(want):
+        return LM_SCAN_REL * float(want.abs().max())
+
+    (logits, cache_k, nxt), lm["prefill_ms_first"] = lm_step(
+        "lm_prefill", lambda: step(lm_params, empty_cache, prompts, 0))
+    if tuple(logits.shape) != (lm_b, prompt, lm_cfg.vocab) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"lm prefill: logits {tuple(logits.shape)}, or non-finite values")
+    (logits_p, cache_p, nxt_p), _ = lm_step("lm_prefill_plain", lambda: step_plain(lm_params, empty_cache, prompts, 0),
+                                            plain=True)
+    diffs = [float((logits - logits_p).abs().max())]
+    bounds = [scan_bound(logits_p)]
+    same_greedy = int(torch.equal(nxt, nxt_p))
+    del logits, logits_p
+    prefilled = cache_k
+    _, lm["prefill_ms"] = lm_step("lm_prefill", lambda: step(lm_params, empty_cache, prompts, 0))
+    lm["prefill_profile"] = device_split(lambda: step(lm_params, empty_cache, prompts, 0))
+    # greedy decode; the plain-scan run is teacher-forced with the kernel run's tokens
+    tokens, dec_ms = [nxt], []
+    for i in range(n_dec):
+        (lg, cache_k, nxt), ms = lm_step("lm_decode", lambda: step(lm_params, cache_k, tokens[-1], prompt + i))
+        (lg_p, cache_p, nxt_p), _ = lm_step("lm_decode_plain",
+                                        lambda: step_plain(lm_params, cache_p, tokens[-1], prompt + i), plain=True)
+        if tuple(lg.shape) != (lm_b, 1, lm_cfg.vocab) or not bool(torch.isfinite(lg).all()):
+            raise AssertionError(f"lm decode step {i}: logits {tuple(lg.shape)}, or non-finite values")
+        diffs.append(float((lg - lg_p).abs().max()))
+        bounds.append(scan_bound(lg_p))
+        same_greedy += int(torch.equal(nxt, nxt_p))
+        dec_ms.append(ms)
+        tokens.append(nxt)
+    lm["decode_ms_first"], lm["decode_ms"] = dec_ms[0], float(np.mean(dec_ms[1:]))
+    lm["decode_ms_min_max"] = [min(dec_ms[1:]), max(dec_ms[1:])]
+    lm["decode_profile"] = device_split(lambda: step(lm_params, prefilled, tokens[0], prompt))
+    lm["decode_aten_ops"] = aten_ops(lambda: step(lm_params, prefilled, tokens[0], prompt))
+    lm["last_position"] = prompt + n_dec - 1
+    lm["tokens_per_s"] = {"prefill": lm_b * prompt / (lm["prefill_ms"] / 1e3),
+                          "decode": lm_b / (lm["decode_ms"] / 1e3)}
+    worst = max(range(len(diffs)), key=lambda j: diffs[j] / max(bounds[j], 1e-30))
+    lm["kernel_vs_plain_scan"] = {"max_abs_logit_diff": max(diffs), "worst_step": worst,
+                                  "bound_at_worst": bounds[worst], "bound_rule": "2**-8 x max |logit| of the step",
+                                  "cache_max_abs_diff": max_diff(zip(leaves(cache_k), leaves(cache_p))),
+                                  "same_greedy_tokens": f"{same_greedy} of {n_dec + 1} forwards"}
+    if diffs[worst] > bounds[worst]:
+        raise AssertionError(f"lm: the kernel run and the plain-scan run differ by {diffs[worst]} at step {worst} "
+                             f"(bound {bounds[worst]})")
+    lm["max_memory_allocated_bytes"] = int(torch.cuda.max_memory_allocated())
+    del lm_params, cache_k, cache_p, prefilled, empty_cache, lg, lg_p
+    torch.cuda.empty_cache()
+
+    # the reduced model in fp32 on the card against the CPU, same weights:
+    # uncached forward, then prefill into the cache and decode past the window
+    r_cfg = reduced(get_config("recurrentgemma-2b"))
+    r_cpu = materialize(torch.Generator().manual_seed(1), model_defs(r_cfg), torch.float32, "cpu")
+    r_dev = nn.to_device(r_cpu, dev)
+    r_toks = np.random.default_rng(1).integers(0, r_cfg.vocab, (2, 12)).astype(np.int32)
+    with torch.no_grad():
+        want, _ = lm_forward(r_cpu, r_cfg, torch.as_tensor(r_toks))
+        got, _ = lm_forward(r_dev, r_cfg, torch.as_tensor(r_toks, device=dev))
+    pairs = [(got.cpu(), want)]  # (card, CPU): logits of each forward and every cache leaf after it
+    caches = [materialize(None, model_cache_defs(r_cfg, 2, 24), torch.float32, d) for d in ("cpu", DEVICE)]
+    step_cpu, step_dev = make_serve_step(r_cfg, device="cpu"), make_serve_step(r_cfg, device=DEVICE)
+    pos = 0
+    for _ in range(7):  # 12-token prefill, 6 decode steps to position 17
+        want, caches[0], r_next = step_cpu(r_cpu, caches[0], r_toks, pos)
+        got, caches[1], _ = step_dev(r_dev, caches[1], r_toks, pos)
+        pairs += [(a.cpu(), b) for a, b in zip([got] + leaves(caches[1]), [want] + leaves(caches[0]))]
+        pos += r_toks.shape[1]
+        r_toks = r_next.numpy()
+    r_ok = all(torch.allclose(a, b, rtol=LM_RTOL, atol=LM_RTOL) for a, b in pairs)
+    lm["reduced_card_vs_cpu"] = {"layers": r_cfg.n_layers(), "window": r_cfg.window, "last_position": pos - 1,
+                                 "max_abs_err": max_diff(pairs), "rtol_atol": LM_RTOL, "ok": r_ok}
+    emit(lm)
+    if not r_ok:
+        raise AssertionError(f"lm: the reduced model on the card disagrees with the CPU "
+                             f"(max abs err {max_diff(pairs)})")
+
+    # -- 5. kernel summary (the representative case: the most work on the path) -------
     sources = {
         "banked_mlp": ("src/repro_torch/csrc/banked_mlp.cu", "src/repro/kernels/banked_mlp/kernel.py:53"),
         "mp_update": ("src/repro_torch/csrc/mp_update.cu", "src/repro/kernels/mp_update/kernel.py:64"),
         "mp_sweep": ("src/repro_torch/csrc/mp_sweep.cu", "src/repro/kernels/mp_sweep/kernel.py:73"),
         "gather_sum": ("src/repro_torch/csrc/seg_gather.cu", "src/repro/kernels/seg_gather/kernel.py:63"),
         "segment_sum": ("src/repro_torch/csrc/seg_gather.cu", "src/repro/kernels/seg_gather/kernel.py:94"),
+        "linear_scan": ("src/repro_torch/csrc/rglru.cu", "src/repro/kernels/rglru/kernel.py:55"),
     }
     summary = []
     for name, (src, replaces) in sources.items():
@@ -519,7 +698,7 @@ def main() -> int:
                         "shape": rep["shape"]})
     emit({"kernels": summary})
 
-    # -- 5. the card, 6. status ---------------------------------------------------
+    # -- 6. the card, 7. status ---------------------------------------------------
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(card.splitlines()[0], flush=True)

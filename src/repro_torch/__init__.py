@@ -1,9 +1,14 @@
 """COSTREAM on PyTorch and CUDA: the port of the ``repro`` package.
 
-The serving path — featurize a joint operator-resource graph, run the 3-stage
-message-passing GNN ensembles, vote the per-metric costs — with its two
-kernels (``banked_mlp``, ``mp_update``) hand-written in CUDA C++ for Hopper
-(``csrc/``).  The port imports nothing of ``repro`` and no JAX.
+The COSTREAM serving paths — featurize a joint operator-resource graph, run
+the 3-stage message-passing GNN ensembles, vote the per-metric costs, for one
+request (``estimate`` / ``score`` / ``optimize``) or across many
+(``estimate_many`` / ``score_many``) — and the LM stack's RecurrentGemma-2B
+serving path (``models/``, ``configs/``: prefill into the decode cache, then
+cached decode).  Six kernels carry them, hand-written in CUDA C++ for Hopper
+(``csrc/``): ``banked_mlp``, ``mp_update``, ``mp_sweep``, ``gather_sum``,
+``segment_sum`` and the RG-LRU ``linear_scan``.  The port imports nothing of
+``repro`` and no JAX.
 """
 
 from repro_torch.core.model import CostModelConfig

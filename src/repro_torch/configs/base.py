@@ -1,0 +1,105 @@
+"""Config registry (port of ``repro/configs/base.py``): architectures x
+input-shape grid.
+
+Shapes (identical for every LM arch):
+  train_4k     seq 4,096   global_batch 256   train_step
+  prefill_32k  seq 32,768  global_batch 32    prefill_step
+  decode_32k   seq 32,768  global_batch 128   serve_step (1 new token)
+  long_500k    seq 524,288 global_batch 1     serve_step; SSM/hybrid only
+
+``get_config`` raises for an architecture whose config the port does not
+have yet.  The JAX package's ``input_specs`` serves its dry-run only and is
+not ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from dataclasses import dataclass
+from typing import Any, Dict, Tuple
+
+from repro_torch.models.transformer import ModelConfig
+
+ARCHS = (
+    "internlm2-1.8b",
+    "qwen3-8b",
+    "deepseek-67b",
+    "gemma2-2b",
+    "recurrentgemma-2b",
+    "arctic-480b",
+    "deepseek-v2-236b",
+    "internvl2-1b",
+    "xlstm-125m",
+    "whisper-base",
+)
+
+# the architectures the port has a config for (their blocks are ported)
+_MODULES = {
+    "recurrentgemma-2b": "recurrentgemma_2b",
+}
+
+# archs whose decode state is sub-quadratic in context (run long_500k)
+SUBQUADRATIC = ("recurrentgemma-2b", "xlstm-125m")
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES = (
+    ShapeSpec("train_4k", 4_096, 256, "train"),
+    ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    ShapeSpec("long_500k", 524_288, 1, "decode"),
+)
+
+
+def get_shape(name: str) -> ShapeSpec:
+    for s in SHAPES:
+        if s.name == name:
+            return s
+    raise KeyError(name)
+
+
+def get_config(arch: str) -> ModelConfig:
+    if arch not in ARCHS:
+        raise KeyError(arch)
+    if arch not in _MODULES:
+        raise NotImplementedError(
+            f"{arch}: its blocks are not ported yet; the port has configs for {sorted(_MODULES)} "
+            "(ROADMAP queue 1, item 10)"
+        )
+    return importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}").config()
+
+
+def cell_supported(arch: str, shape: ShapeSpec) -> Tuple[bool, str]:
+    """Whether this (arch, shape) cell runs, and why not if skipped."""
+    if shape.name == "long_500k" and arch not in SUBQUADRATIC:
+        return False, "full-attention arch: 500k decode is not sub-quadratic (DESIGN.md SS5)"
+    return True, ""
+
+
+def reduced(cfg: ModelConfig) -> ModelConfig:
+    """Smoke-test variant: same family/topology, tiny sizes."""
+    if cfg.mla is not None or cfg.moe is not None or cfg.xlstm is not None:
+        raise NotImplementedError(f"{cfg.name}: MLA, MoE and xLSTM are not ported yet (ROADMAP queue 1, item 10)")
+    kw: Dict[str, Any] = dict(
+        d_model=64,
+        n_heads=4,
+        n_kv_heads=max(1, min(cfg.n_kv_heads, 2)),
+        head_dim=16,
+        d_ff=0 if cfg.d_ff == 0 else 128,
+        vocab=512,
+        n_groups=min(cfg.n_groups, 2),
+        enc_groups=min(cfg.enc_groups, 2),
+        window=8 if cfg.window else None,
+        vis_len=8 if cfg.vis_len else 0,
+        rnn_width=64 if cfg.rnn_width else None,
+        remat="none",
+    )
+    return dataclasses.replace(cfg, **kw)

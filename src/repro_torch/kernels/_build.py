@@ -24,7 +24,7 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-KERNELS = ("banked_mlp", "mp_update", "mp_sweep", "seg_gather")  # one source, one library each
+KERNELS = ("banked_mlp", "mp_update", "mp_sweep", "seg_gather", "rglru")  # one source, one library each
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -113,6 +113,8 @@ SIGNATURES = {
     "gather_sum": ("seg_gather", "gather_sum_launch", [_P, _P, _L, _L, _L, _P, _L, _L, _L, _P] + [_I] * 7 + [_P]),
     # x, seg, seg_bs, out, E, B, N, S, H, device, stream
     "segment_sum": ("seg_gather", "segment_sum_launch", [_P, _P, _L, _P] + [_I] * 6 + [_P]),
+    # a, a_bs, a_ts, a_ds, x, x_bs, x_ts, x_ds, h0, h_bs, h_ds, out, B, T, D, device, stream
+    "linear_scan": ("rglru", "linear_scan_launch", [_P, _L, _L, _L] * 2 + [_P, _L, _L, _P] + [_I] * 4 + [_P]),
 }
 
 _lock = threading.Lock()
@@ -140,8 +142,9 @@ def _ptxas_summary(log: str) -> Dict[str, Dict[str, int]]:
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            t = re.search(r"\d+([a-z_]+_kernel)ILi(\d+)E", m.group(1))  # demangle kernel<N>
-            entry = out.setdefault(f"{t.group(1)}<{t.group(2)}>" if t else m.group(1), {})
+            t = re.search(r"\d+([a-z_]+_kernel)(?:ILi(\d+)E)?", m.group(1))  # demangle kernel / kernel<N>
+            name = m.group(1) if t is None else t.group(1) + (f"<{t.group(2)}>" if t.group(2) else "")
+            entry = out.setdefault(name, {})
             continue
         if entry is None:
             continue

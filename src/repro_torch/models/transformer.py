@@ -1,0 +1,304 @@
+"""Decoder-only transformer assembly (port of ``repro/models/transformer.py``).
+
+A model is a prefix + a repeated group pattern + a suffix of *blocks*.  The
+group parameters (and caches) are stacked along a leading ``layers`` axis, as
+in the JAX package, and run as a Python loop over the group index on the
+stacked tensors (JAX's ``scan_layers=False`` branch; ``scan_layers`` and
+``remat`` are read by nothing here).  Block kinds ported so far:
+
+  "attn"     global attention + FFN
+  "local"    sliding-window attention + FFN   (recurrentgemma, gemma2)
+  "global"   global attention + FFN, gemma2 sandwich norms by name
+  "rec"      RG-LRU recurrent block + FFN     (recurrentgemma)
+
+The other kinds (MoE, MLA, xLSTM, the whisper encoder-decoder) and the
+modality frontends raise ``NotImplementedError`` (ROADMAP queue 1, item 10).
+With one card there is no mesh: the JAX package's activation constraints
+(``constrain_batch``) are the identity here and are left out.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch import nn
+from repro_torch.models import blocks as B
+from repro_torch.models.params import ParamDef, pdef
+
+Params = Dict[str, Any]
+
+KINDS = ("attn", "local", "global", "rec")  # the block kinds the port has
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab: int
+    # layer structure
+    prefix: Tuple[str, ...] = ()
+    pattern: Tuple[str, ...] = ("attn",)
+    n_groups: int = 1
+    suffix: Tuple[str, ...] = ()
+    # attention details
+    qk_norm: bool = False
+    attn_softcap: Optional[float] = None
+    final_softcap: Optional[float] = None
+    window: Optional[int] = None
+    rope_theta: float = 10_000.0
+    # families (MLA, MoE, xLSTM: not ported yet)
+    mla: Optional[Any] = None
+    moe: Optional[Any] = None
+    rnn_width: Optional[int] = None
+    conv_width: int = 4
+    xlstm: Optional[Any] = None
+    # ffn / embeddings
+    ffn_kind: str = "swiglu"
+    tie_embeddings: bool = False
+    emb_scale: bool = False
+    norm_eps: float = 1e-6
+    # enc-dec (whisper): not ported yet
+    enc_pattern: Optional[Tuple[str, ...]] = None
+    enc_groups: int = 0
+    enc_positions: str = "rope"  # rope | sinusoidal
+    # modality frontend: not ported yet
+    frontend: str = "none"  # none | vision | audio
+    vis_len: int = 0
+    # the JAX package's remat policy and layer scan; the port loops in Python
+    remat: str = "full"
+    # run the rglru linear-scan kernel inside RG-LRU blocks
+    use_rglru_kernel: bool = False
+    # Griffin-style block-diagonal RG-LRU gate matrices
+    rg_blockdiag: bool = False
+    scan_layers: bool = True
+
+    def n_layers(self) -> int:
+        return (
+            len(self.prefix)
+            + self.n_groups * len(self.pattern)
+            + len(self.suffix)
+            + self.enc_groups * len(self.enc_pattern or ())
+        )
+
+    def attn_cfg(self, kind: str) -> B.AttnConfig:
+        return B.AttnConfig(
+            d_model=self.d_model,
+            n_heads=self.n_heads,
+            n_kv_heads=self.n_kv_heads,
+            head_dim=self.head_dim,
+            qk_norm=self.qk_norm,
+            attn_softcap=self.attn_softcap,
+            window=self.window if kind == "local" else None,
+            causal=kind != "enc",
+            rope_theta=self.rope_theta,
+            cross=False,
+        )
+
+    def rglru_cfg(self) -> B.RGLRUConfig:
+        return B.RGLRUConfig(
+            d_model=self.d_model,
+            width=self.rnn_width or self.d_model,
+            conv_width=self.conv_width,
+            use_kernel=self.use_rglru_kernel,
+            block_diag_gates=self.rg_blockdiag,
+            n_gate_blocks=self.n_heads if self.rg_blockdiag else 1,
+        )
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a configuration the port cannot run yet."""
+    kinds = set(cfg.prefix) | set(cfg.pattern if cfg.n_groups else ()) | set(cfg.suffix)
+    missing = sorted(kinds - set(KINDS))
+    if missing or cfg.enc_pattern or cfg.frontend != "none" or cfg.enc_positions != "rope":
+        raise NotImplementedError(
+            f"{cfg.name}: block kinds {missing or 'ok'}, encoder {cfg.enc_pattern}, frontend "
+            f"{cfg.frontend!r}, positions {cfg.enc_positions!r}; the port has the decoder-only "
+            f"kinds {KINDS} with RoPE (ROADMAP queue 1, item 10)"
+        )
+
+
+# ---------------------------------------------------------------------------
+# block definitions
+# ---------------------------------------------------------------------------
+
+_SANDWICH = ("global", "local")  # gemma2-style pre+post norms
+
+
+def block_defs(cfg: ModelConfig, kind: str) -> Params:
+    d = cfg.d_model
+    p: Params = {"norm1": B.rmsnorm_defs(d)}
+    if kind in ("attn", "local", "global"):
+        p["attn"] = B.attn_defs(cfg.attn_cfg(kind))
+    elif kind == "rec":
+        p["rec"] = B.rglru_defs(cfg.rglru_cfg())
+    else:
+        raise NotImplementedError(f"block kind {kind!r} is not ported yet (ROADMAP queue 1, item 10)")
+    p["norm2"] = B.rmsnorm_defs(d)
+    p["ffn"] = B.ffn_defs(d, cfg.d_ff, cfg.ffn_kind)
+    if kind in _SANDWICH and cfg.name.startswith("gemma2"):
+        p["post_norm1"] = B.rmsnorm_defs(d)
+        p["post_norm2"] = B.rmsnorm_defs(d)
+    return p
+
+
+def cache_defs(cfg: ModelConfig, kind: str, batch: int, max_seq: int) -> Params:
+    """Decode-cache ParamDefs for one block (shapes + sharding axes).  A
+    local-attention cache is a full ``max_seq`` buffer, as in the JAX package."""
+    if kind in ("attn", "global", "local"):
+        shp = (batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+        ax = ("batch", "act_seq", "kv", None)
+        return {"k": pdef(shp, ax, init="zeros"), "v": pdef(shp, ax, init="zeros")}
+    if kind == "rec":
+        r = cfg.rnn_width or cfg.d_model
+        return {
+            "h": pdef((batch, r), ("batch", "ff"), init="zeros", dtype=torch.float32),
+            "conv": pdef((batch, cfg.conv_width - 1, r), ("batch", None, "ff"), init="zeros"),
+        }
+    raise NotImplementedError(f"block kind {kind!r} is not ported yet (ROADMAP queue 1, item 10)")
+
+
+def model_defs(cfg: ModelConfig) -> Params:
+    """Full parameter tree (ParamDefs) for a model config."""
+    check_supported(cfg)
+    d, v = cfg.d_model, cfg.vocab
+    p: Params = {
+        "embed": pdef((v, d), ("vocab", "embed"), scale=1.0),
+        "final_norm": B.rmsnorm_defs(d),
+    }
+    if not cfg.tie_embeddings:
+        p["head"] = pdef((d, v), ("embed", "vocab"))
+    if cfg.prefix:
+        p["prefix"] = [block_defs(cfg, k) for k in cfg.prefix]
+    if cfg.n_groups > 0:
+        p["groups"] = _stack_defs({f"b{i}": block_defs(cfg, k) for i, k in enumerate(cfg.pattern)}, cfg.n_groups)
+    if cfg.suffix:
+        p["suffix"] = [block_defs(cfg, k) for k in cfg.suffix]
+    return p
+
+
+def _stack_defs(tree: Params, n: int) -> Params:
+    def stack(dfn: ParamDef) -> ParamDef:
+        return pdef((n,) + dfn.shape, ("layers",) + dfn.axes, dfn.init, dfn.scale, dfn.dtype)
+
+    return nn.tree_map(stack, tree)
+
+
+def model_cache_defs(cfg: ModelConfig, batch: int, max_seq: int) -> Params:
+    check_supported(cfg)
+    c: Params = {}
+    if cfg.prefix:
+        c["prefix"] = [cache_defs(cfg, k, batch, max_seq) for k in cfg.prefix]
+    if cfg.n_groups > 0:
+        c["groups"] = _stack_defs(
+            {f"b{i}": cache_defs(cfg, k, batch, max_seq) for i, k in enumerate(cfg.pattern)}, cfg.n_groups
+        )
+    if cfg.suffix:
+        c["suffix"] = [cache_defs(cfg, k, batch, max_seq) for k in cfg.suffix]
+    return c
+
+
+# ---------------------------------------------------------------------------
+# block application
+# ---------------------------------------------------------------------------
+
+
+def apply_block(
+    p: Params,
+    x: torch.Tensor,
+    kind: str,
+    cfg: ModelConfig,
+    *,
+    positions: torch.Tensor,
+    cache: Optional[Params] = None,
+    cache_len: Optional[int] = None,
+) -> Tuple[torch.Tensor, Optional[Params]]:
+    eps = cfg.norm_eps
+    h = B.apply_rmsnorm(p["norm1"], x, eps)
+    if kind in ("attn", "local", "global"):
+        y, new_cache = B.apply_attn(p["attn"], h, cfg.attn_cfg(kind), positions=positions, cache=cache,
+                                    cache_len=cache_len)
+        if "post_norm1" in p:
+            y = B.apply_rmsnorm(p["post_norm1"], y, eps)
+    elif kind == "rec":
+        y, new_cache = B.apply_rglru(p["rec"], h, cfg.rglru_cfg(), cache=cache)
+    else:
+        raise NotImplementedError(f"block kind {kind!r} is not ported yet (ROADMAP queue 1, item 10)")
+    x = x + y
+
+    h2 = B.apply_rmsnorm(p["norm2"], x, eps)
+    y2 = B.apply_ffn(p["ffn"], h2, cfg.ffn_kind)
+    if "post_norm2" in p:
+        y2 = B.apply_rmsnorm(p["post_norm2"], y2, eps)
+    return x + y2, new_cache
+
+
+def _tree_slice(tree, i: int):
+    return nn.tree_map(lambda x: x[i], tree)
+
+
+# ---------------------------------------------------------------------------
+# full forward
+# ---------------------------------------------------------------------------
+
+
+def embed_tokens(params: Params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+    x = params["embed"][tokens]
+    if cfg.emb_scale:
+        x = x * math.sqrt(cfg.d_model)
+    return x
+
+
+def unembed(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    x = B.apply_rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    logits = x @ (params["embed"].T if cfg.tie_embeddings else params["head"])
+    return B.softcap(logits.to(torch.float32), cfg.final_softcap)
+
+
+def forward(
+    params: Params,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,  # (B, S) int
+    *,
+    cache: Optional[Params] = None,
+    cache_len: Optional[int] = None,
+) -> Tuple[torch.Tensor, Optional[Params]]:
+    """Returns (logits (B, S, V) float32, new_cache).  Uncached: ``cache=None``.
+    Cached (prefill into the cache, or decode): the S tokens sit at positions
+    ``cache_len .. cache_len + S - 1`` and the new cache is returned; the
+    caller's cache is not modified."""
+    check_supported(cfg)
+    x = embed_tokens(params, cfg, tokens)
+    S = x.shape[1]
+    start = 0 if cache_len is None else int(cache_len)
+    positions = torch.arange(start, start + S, dtype=torch.int32, device=x.device)
+
+    def run(p, x, kind, c):
+        return apply_block(p, x, kind, cfg, positions=positions, cache=c, cache_len=start)
+
+    new_cache: Params = {}
+    for i, kind in enumerate(cfg.prefix):
+        x, nc = run(params["prefix"][i], x, kind, None if cache is None else cache["prefix"][i])
+        new_cache.setdefault("prefix", []).append(nc)
+    if cfg.n_groups > 0:
+        group_caches = []
+        for gi in range(cfg.n_groups):
+            gp = _tree_slice(params["groups"], gi)
+            gc = None if cache is None else _tree_slice(cache["groups"], gi)
+            ncs = {}
+            for i, kind in enumerate(cfg.pattern):
+                x, ncs[f"b{i}"] = run(gp[f"b{i}"], x, kind, None if gc is None else gc[f"b{i}"])
+            group_caches.append(ncs)
+        if cache is not None:
+            new_cache["groups"] = nn.tree_map(lambda *xs: torch.stack(xs), *group_caches)
+    for i, kind in enumerate(cfg.suffix):
+        x, nc = run(params["suffix"][i], x, kind, None if cache is None else cache["suffix"][i])
+        new_cache.setdefault("suffix", []).append(nc)
+    return unembed(params, cfg, x), (new_cache if cache is not None else None)

@@ -23,6 +23,25 @@ import torch
 Params = Dict[str, object]
 
 
+def resolve_device(device, who: str) -> torch.device:
+    """``device`` as a ``torch.device``; None means the GPU, which must exist.
+
+    ``who`` names the entry point in the error.  On a GPU the plain-PyTorch
+    float32 matmuls stay in full fp32 (no TF32).
+    """
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"{who} runs on a CUDA device by default and none is "
+                "available; pass device='cpu' to run the plain PyTorch path"
+            )
+        device = "cuda"
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+    return device
+
+
 # -- trees ----------------------------------------------------------------------
 
 
@@ -55,11 +74,22 @@ def tree_leaves_with_paths(tree):
 def params_from_numpy(tree, device="cpu") -> Params:
     """The JAX package's params tree (leaves as numpy arrays) as tensors.
 
-    Keys and nesting are kept, so ``tree["op_enc"]["layers"][0]["w"]`` names
-    the same weight in both packages.  Arrays are copied: ``np.asarray`` of
-    a JAX array is read-only, and the port never aliases caller memory.
+    Keys and nesting are kept, so ``tree["op_enc"]["layers"][0]["w"]`` (or,
+    for the LM stack, ``tree["groups"]["b0"]["rec"]["lam"]`` and the
+    ``prefix`` / ``suffix`` lists) names the same weight in both packages.
+    Arrays are copied: ``np.asarray`` of a JAX array is read-only, and the
+    port never aliases caller memory.  A bfloat16 leaf (numpy's
+    ``ml_dtypes.bfloat16``, as JAX hands bf16 arrays over) goes through
+    float32, which holds every bfloat16 value exactly, to ``torch.bfloat16``.
     """
-    return tree_map(lambda a: torch.tensor(np.array(a, copy=True), device=device), tree)
+
+    def leaf(a):
+        a = np.array(a, copy=True)
+        if a.dtype.name == "bfloat16":
+            return torch.tensor(a.astype(np.float32), device=device).to(torch.bfloat16)
+        return torch.tensor(a, device=device)
+
+    return tree_map(leaf, tree)
 
 
 def members(tree) -> Params:

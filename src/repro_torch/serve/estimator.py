@@ -122,22 +122,6 @@ def _host(raw: torch.Tensor) -> np.ndarray:
     return raw.detach().cpu().numpy()
 
 
-def resolve_device(device=None) -> torch.device:
-    """``device`` as a ``torch.device``; None means the GPU, which must exist."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "CostEstimator runs on a CUDA device by default and none is "
-                "available; pass device='cpu' to run the plain PyTorch path"
-            )
-        device = "cuda"
-    device = torch.device(device)
-    if device.type == "cuda":
-        # the plain-PyTorch parts of the forward stay in full fp32
-        torch.backends.cuda.matmul.allow_tf32 = False
-    return device
-
-
 def graphs_to_device(g: JointGraph, device) -> JointGraph:
     """A host ``JointGraph`` of numpy arrays as contiguous tensors on ``device``."""
     return JointGraph(*[torch.as_tensor(np.ascontiguousarray(x), device=device) for x in g])
@@ -228,7 +212,7 @@ class CostEstimator:
         policy: Optional[DispatchPolicy] = None,
         device=None,
     ):
-        self.device = resolve_device(device)
+        self.device = nn.resolve_device(device, "CostEstimator")
         # plain dicts are copied (callers may mutate theirs); other Mappings
         # (bundle.LazyModels) pass through so laziness survives the facade
         self.models = dict(models) if type(models) is dict else models

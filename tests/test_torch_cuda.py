@@ -3,15 +3,19 @@
 Every test here needs a CUDA device and skips itself without one; the file
 imports neither JAX nor the JAX package, so it runs on a machine that has
 only PyTorch.  Kernels are held against their plain PyTorch versions at the
-main path's shapes (15 stacked members, hidden 64) at ``rtol=atol=1e-5``;
-the estimator on the card against the same estimator on the CPU.
+main path's shapes (15 stacked members, hidden 64; the RG-LRU scan at
+RecurrentGemma-2B's prefill and decode shapes) at ``rtol=atol=1e-5``; the
+estimator and the reduced LM on the card against the same on the CPU.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch import nn
 from repro_torch.core import gnn
 from repro_torch.core.gnn import GNNConfig
 from repro_torch.core.graph import SLOT_RANGES, batch_graphs, build_graph, exact_banding
@@ -21,10 +25,14 @@ from repro_torch.kernels.banked_mlp import ops as bank_ops
 from repro_torch.kernels.banked_mlp.ref import banked_mlp_slotted_ref
 from repro_torch.kernels.mp_sweep import ops as sweep_ops
 from repro_torch.kernels.mp_sweep.ref import mp_sweep_ref
+from repro_torch.configs import get_config, reduced
 from repro_torch.kernels.mp_update import ops as mp_ops
 from repro_torch.kernels.mp_update.ref import mp_update_ref
 from repro_torch.kernels.seg_gather import ops as seg_ops
+from repro_torch.kernels.rglru import ops as scan_ops
+from repro_torch.kernels.rglru.ref import linear_scan_ref
 from repro_torch.kernels.seg_gather.ref import gather_sum_ref, segment_sum_ref
+from repro_torch.models import params, steps, transformer
 from repro_torch.placement.enumerate import sample_assignment_matrix
 from repro_torch.serve.estimator import CostEstimator
 
@@ -223,3 +231,59 @@ def test_cross_query_paths_on_card_match_cpu(cuda):
     for g_, w_ in zip(got + got_s, want + want_s):
         for m in REGRESSION_METRICS:
             np.testing.assert_allclose(g_[m], w_[m], rtol=1e-4, atol=1e-6, err_msg=m)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,D,h0_slice", [(4, 2048, 2560, False), (4, 1, 2560, True), (3, 37, 100, True)])
+def test_linear_scan_kernel_matches_plain(cuda, B, T, D, h0_slice):
+    """RecurrentGemma-2B's prefill and decode shapes and a ragged one; h0 as
+    a slice of a stacked (groups, B, D) cache, read through its strides."""
+    gen = torch.Generator().manual_seed(T)
+    a = torch.rand((B, T, D), generator=gen).to(cuda)
+    b = torch.randn((B, T, D), generator=gen).to(cuda)
+    stacked = torch.randn((3, B, D + 5), generator=gen).to(cuda)
+    h0 = stacked[1, :, 2 : D + 2] if h0_slice else stacked[1, :, :D].contiguous()
+    assert h0.is_contiguous() != h0_slice
+    before = scan_ops.linear_scan.launches
+    got = scan_ops.linear_scan(a, b, h0)
+    again = scan_ops.linear_scan(a, b, h0)
+    torch.cuda.synchronize()
+    assert scan_ops.linear_scan.launches == before + 2
+    torch.testing.assert_close(got, linear_scan_ref(a, b, h0), **TOL)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+def test_linear_scan_wrapper_raises_on_other_dtypes(cuda):
+    x = torch.zeros((2, 3, 8), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="float32"):
+        scan_ops.linear_scan(x, x, torch.zeros((2, 8), device=cuda, dtype=torch.bfloat16))
+    assert scan_ops.linear_scan(x.float()[:, :0], x.float()[:, :0], torch.zeros((2, 8), device=cuda)).shape == (2, 0, 8)
+
+
+@pytest.mark.gpu
+def test_reduced_lm_on_card_matches_cpu(cuda):
+    """The reduced recurrentgemma-2b in fp32 from the same weights: prefill
+    into the cache and decode steps past the window, logits and caches; one
+    linear_scan launch per RG-LRU layer per step."""
+    cfg = reduced(get_config("recurrentgemma-2b"))
+    cpu_p = params.materialize(torch.Generator().manual_seed(0), transformer.model_defs(cfg), torch.float32, "cpu")
+    gpu_p = nn.to_device(cpu_p, cuda)
+    caches = [params.materialize(None, transformer.model_cache_defs(cfg, 2, 24), torch.float32, d) for d in ("cpu", cuda)]
+    step_cpu, step_gpu = steps.make_serve_step(cfg, device="cpu"), steps.make_serve_step(cfg)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 12)).astype(np.int32)
+    pos, n_rec = 0, sum(k == "rec" for k in cfg.pattern) * cfg.n_groups + sum(k == "rec" for k in cfg.suffix)
+    for _ in range(7):
+        before = scan_ops.linear_scan.launches
+        want, caches[0], nxt = step_cpu(cpu_p, caches[0], toks, pos)
+        got, caches[1], _ = step_gpu(gpu_p, caches[1], toks, pos)
+        torch.cuda.synchronize()
+        assert scan_ops.linear_scan.launches == before + n_rec == before + 6
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+        nn.tree_map(lambda g, c: torch.testing.assert_close(g.cpu(), c, rtol=1e-4, atol=1e-4), caches[1], caches[0])
+        pos += toks.shape[1]
+        toks = nxt.numpy()
+    plain = steps.make_serve_step(dataclasses.replace(cfg, use_rglru_kernel=False))
+    before = scan_ops.linear_scan.launches
+    plain(gpu_p, caches[1], toks, pos)
+    assert scan_ops.linear_scan.launches == before
