@@ -4,7 +4,9 @@
 Run from the repository root:  python3 chip_smoke.py
 
 Each phase prints one JSON line:
-  build    nvcc build of every kernel (time; registers and shared memory per kernel)
+  build    nvcc build of every kernel (time; registers, spills and shared memory
+           per kernel; the TF32 tensor-core MMAs in banked_mlp's and mp_update's
+           SASS, which must be there, with no spills)
   kernels  each CUDA kernel against its plain PyTorch version at the shapes its
            path gives it (max abs error beside the tolerance; kernel, plain,
            bound and, where one PyTorch call computes the same function,
@@ -29,13 +31,19 @@ a directory that holds this script and nothing else of the repository.
 
 import dataclasses
 import json
+import shutil
 import subprocess
 import sys
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PEAK_FP32_FLOPS = 67e12  # H100 SXM, fp32 outside the tensor cores
+# The fastest route to fp32-accurate products on an H100 SXM: TF32 tensor
+# cores at 495e12 FLOP/s with the 3xTF32 split (three products each), which
+# holds TOL where TF32 alone does not.  The card's bound, so it is every
+# kernel's operations rate, whether or not the kernel uses that route (the
+# CUDA cores give 67e12).
+PEAK_FP32_FLOPS = 495e12 / 3
 PEAK_HBM_BYTES = 3.35e12  # H100 SXM HBM3
 TOL = 1e-5  # rtol = atol for kernel against plain version
 SERVE_RTOL = 1e-4
@@ -61,6 +69,22 @@ def bound(flops: float, nbytes: float):
     """Least time for the work on this card: (ms, what bounds it)."""
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def tensor_core_mmas(library: str):
+    """TF32 ``HMMA`` instructions per kernel in a built library's SASS
+    (``cuobjdump -sass``), keyed by the kernel's mangled name."""
+    cuobjdump = Path(shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", library], capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            counts[name] = 0
+        elif name is not None and "HMMA" in line and "TF32" in line:
+            counts[name] += 1
+    return counts
 
 
 def main() -> int:
@@ -120,8 +144,16 @@ def main() -> int:
     # -- 1. build ------------------------------------------------------------------
     t0 = time.perf_counter()
     built = _build.build_all(force=True)
+    mma = {n: tensor_core_mmas(built[n]["path"]) for n in ("banked_mlp", "mp_update")}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "kernels": {n: {"seconds": b["seconds"], "ptxas": b["ptxas"]} for n, b in built.items()}})
+          "kernels": {n: {"seconds": b["seconds"], "ptxas": b["ptxas"]} for n, b in built.items()},
+          "tf32_mma_in_sass": mma})
+    for n, per_kernel in mma.items():
+        kernels = {k: v for k, v in built[n]["ptxas"].items() if k.startswith(n + "_kernel")}
+        if not kernels or any(v.get("spill_store_bytes", 0) for v in kernels.values()):
+            raise AssertionError(f"{n}: ptxas reports spills or no kernel: {kernels}")
+        if not per_kernel or not all(per_kernel.values()):
+            raise AssertionError(f"{n}: a kernel issues no TF32 tensor-core MMA: {per_kernel}")
 
     # -- inputs of the main path: a full-width model and a real trace batch --------
     E_MEMBERS = 3

@@ -8,100 +8,152 @@
 // JAX package got that from jax.vmap over a pallas_call).  x may be shared by
 // all members (member stride 0), as the placed path's stage-0 input is.
 //
-// What bounds it on this card: arithmetic.  Each row does F*H1 + H1*H2 FMAs
-// (12,288 for the op_upd bank at H = 64) against F*4 bytes of input, far above
-// the H100's fp32 ridge of 67e12 / 3.35e12 = 20 FLOP per byte.  This first
-// version runs plain fp32 FMA on the CUDA cores (no TF32, no tensor cores), so
-// it matches the plain PyTorch version to 1e-5.
+// What bounds it on this card: on the CUDA cores, arithmetic (F*H1 + H1*H2
+// FMAs per row against F*4 bytes in: 24,576 FLOP per 512 bytes for op_upd at
+// H = 64).  On the tensor cores in 3xTF32 (mma_tile.cuh; three TF32 products
+// per fp32 product, up to 495 / 3 = 165 TFLOP/s), bytes: op_upd moves 570 MB
+// (0.170 ms at 3.35 TB/s) for 18.1 GFLOP (0.110 ms).  This kernel reaches
+// neither: with mma.sync, the three MMAs and the operand splits of every
+// fragment are issued one warp instruction at a time, and that issue rate
+// sets its time (PERF.md).
 //
-// Design: one block owns one (member, slot range) pair and a run of 64-row
-// tiles of that range's rows across the batch.  It stages that one type's W1
-// and W2 (at most 32 KB + 16 KB at F = 128, H = 64) in shared memory once --
-// the whole 5-type bank (245 KB) would not fit -- and reuses them for every
-// tile it walks.  Rows are the range's (graph, slot) pairs in order, so a
-// ragged tail (F = 39 or 4, a range of one slot, a batch of one) is masked
-// rather than padded.  Each tile stays in shared memory between the two
-// layers: x is read once from device memory and y written once.
+// Design: the work is a list of 64-row tiles, member-major, each tile inside
+// one (member, slot range) pair; rows are the range's (graph, slot) pairs in
+// order, so a ragged tail (F = 39 or 4, a range of one slot, a batch of one)
+// is masked rather than padded in device memory.  The grid is one wave: as
+// many blocks as fit on the card at once, each walking an equal run of the
+// list, so the card stays full whatever the ranges' sizes (two blocks fit on
+// an SM at op_upd: 49.6 KB of weights and two 32 KB tiles).  A block stages a
+// pair's weights with cp.async when its run enters that pair (the whole
+// 5-type bank, 245 KB at H = 64, would not fit), and keeps a ring of two input
+// tiles: the cp.async loads of the next tile's rows (16 bytes where a row is
+// 16-byte aligned, 4 bytes otherwise: F = 39 rows are 156 bytes) run while the
+// tensor cores work on the current one.  The output goes back through shared
+// memory and out in 16-byte row-contiguous writes.
 #include <cuda_runtime.h>
 
-#include "mlp_tile.cuh"
+#include "mma_tile.cuh"
 
 namespace repro_torch {
 
-// Per-range block offsets: range r owns blocks [first_block[r], first_block[r + 1]).
-struct BlockTable {
+// Per-member tile offsets: range r owns tiles [first_tile[r], first_tile[r + 1]) of each member.
+struct TileTable {
   SlotRanges ranges;
-  int first_block[kMaxRanges + 1];
+  int first_tile[kMaxRanges + 1];
 };
 
-template <int CPT>
-__global__ void __launch_bounds__(kThreads) banked_mlp_kernel(
-    const float* __restrict__ x, long long x_member_stride, const float* __restrict__ w1,
-    const float* __restrict__ b1, const float* __restrict__ w2, const float* __restrict__ b2,
-    float* __restrict__ y, int B, int N, int F, int H1, int H2, int T, BlockTable table,
-    int rows_per_block) {
-  extern __shared__ float smem[];
-  const int e = blockIdx.y;
-  int r = 0;
-  while (r + 1 < table.ranges.n && (int)blockIdx.x >= table.first_block[r + 1]) ++r;
-  const int t = table.ranges.type[r];
-  const int start = table.ranges.start[r];
-  const int L = table.ranges.stop[r] - start;  // rows of this range in one graph
-  const long long total = (long long)B * L;
-  const long long row0 = (long long)(blockIdx.x - table.first_block[r]) * rows_per_block;
-  const long long row1 = min(total, row0 + rows_per_block);
+struct BankArgs {
+  const float* x;
+  long long x_member_stride;
+  const float *w1, *b1, *w2, *b2;
+  float* y;
+  int B, N, T;
+  mma::Dims dims;  // k = F, n1 = H1, n2 = H2
+};
 
-  float* w1s = smem;
-  float* b1s = w1s + F * H1;
-  float* w2s = b1s + H1;
-  float* b2s = w2s + H1 * H2;
-  float* xs = b2s + H2;
-  const int xs_stride = tile_stride(F);
-  float* hs = xs + kTileRows * xs_stride;
-  const int hs_stride = tile_stride(H1);
+// Where tile i of the list lies: member e, range r, its first row inside the
+// range's B * L rows, and its number of rows.
+struct TileAt {
+  int e, r, row0, rows;
+};
 
-  const long long et = (long long)e * T + t;
-  copy_block(w1s, w1 + et * F * H1, F * H1);
-  copy_block(b1s, b1 + et * H1, H1);
-  copy_block(w2s, w2 + et * H1 * H2, H1 * H2);
-  copy_block(b2s, b2 + et * H2, H2);
-  const float* xe = x + e * x_member_stride;
-  float* ye = y + (long long)e * B * N * H2;
-  __shared__ long long row_of[kTileRows];  // (graph * N + slot) of each tile row
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+__device__ __forceinline__ TileAt locate(const TileTable& table, int B, int i) {
+  const int per_member = table.first_tile[table.ranges.n];
+  TileAt at;
+  at.e = i / per_member;
+  const int rem = i - at.e * per_member;
+  at.r = 0;
+  while (at.r + 1 < table.ranges.n && rem >= table.first_tile[at.r + 1]) ++at.r;
+  at.row0 = (rem - table.first_tile[at.r]) * mma::kRows;
+  const int total = B * (table.ranges.stop[at.r] - table.ranges.start[at.r]);
+  at.rows = min(mma::kRows, total - at.row0);
+  return at;
+}
 
-  for (long long tile0 = row0; tile0 < row1; tile0 += kTileRows) {
-    const int rows = (int)min((long long)kTileRows, row1 - tile0);
-    // one warp per row: the row's address is worked out once, lanes copy its columns
-    for (int rr = warp; rr < rows; rr += kThreads / 32) {
-      const long long li = tile0 + rr;
-      const long long g = li / L;
-      const long long row = g * N + start + (li - g * L);
-      if (lane == 0) row_of[rr] = row;
-      const float* src = xe + row * F;
-      for (int k = lane; k < F; k += 32) xs[rr * xs_stride + k] = src[k];
+// Row (graph * N + slot) of the range's li-th row.
+__device__ __forceinline__ long long slot_row(const TileTable& table, int r, int N, int li) {
+  const int start = table.ranges.start[r], L = table.ranges.stop[r] - start;
+  const int g = li / L;
+  return (long long)g * N + start + (li - g * L);
+}
+
+// Issue the loads of tile `at` into buf (4 threads a row), and zero the
+// padding columns F .. round8(F).
+__device__ __forceinline__ void load_tile(float* buf, const BankArgs& a, const TileTable& table,
+                                          const TileAt& at) {
+  const int rr = threadIdx.x >> 2, sub = threadIdx.x & 3;
+  if (rr >= at.rows) return;
+  const int F = a.dims.k;
+  const mma::Layout lx = mma::act_layout(F);
+  const float* src = a.x + at.e * a.x_member_stride + slot_row(table, at.r, a.N, at.row0 + rr) * F;
+  if (F % 4 == 0 && mma::aligned16(src)) {
+    for (int c = 4 * sub; c < F; c += 16) mma::cp_async16(buf + mma::act_at(lx, rr, c), src + c);
+  } else {
+    for (int c = sub; c < F; c += 4) mma::cp_async4(buf + mma::act_at(lx, rr, c), src + c);
+  }
+  for (int c = F + sub; c < mma::round8(F); c += 4) buf[mma::act_at(lx, rr, c)] = 0.f;
+}
+
+template <int NTW>
+__global__ void __launch_bounds__(mma::kThreads, NTW >= 8 ? 1 : 2)
+    banked_mlp_kernel(BankArgs a, TileTable table, int n_tiles, int tiles_per_block) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int begin = blockIdx.x * tiles_per_block;
+  const int end = min(n_tiles, begin + tiles_per_block);
+  if (begin >= end) return;
+  const mma::Dims d = a.dims;
+  float* weights = smem;
+  float* const buf0 = weights + mma::weight_floats(d);  // the ring: buf0, buf0 + tile_floats
+  const mma::Staged w = mma::staged_at(weights, d);
+  const mma::Layout ly = mma::act_layout(d.n2);
+
+  TileAt at = locate(table, a.B, begin);
+  load_tile(buf0, a, table, at);
+  mma::cp_async_commit();
+  long long staged = -1;  // member * T + type of the staged weights
+  for (int i = begin; i < end; ++i) {
+    float* buf = buf0 + ((i - begin) & 1) * mma::tile_floats(d);
+    const long long key = (long long)at.e * a.T + table.ranges.type[at.r];
+    if (key != staged) {  // the run enters another (member, type): stage its weights
+      __syncthreads();
+      mma::stage_weights(weights, d, key, a.w1, a.b1, a.w2, a.b2);
+      staged = key;
     }
-    __syncthreads();
-    dense_tile<CPT, true>(xs, xs_stride, F, w1s, b1s, H1, rows,
-                          [&](int rr, int c, float v) { hs[rr * hs_stride + c] = v; });
-    __syncthreads();
-    dense_tile<CPT, false>(hs, hs_stride, H1, w2s, b2s, H2, rows,
-                           [&](int rr, int c, float v) { ye[row_of[rr] * H2 + c] = v; });
-    __syncthreads();  // row_of, xs and hs are rewritten by the next tile
+    mma::cp_async_wait<0>();  // tile i (and any weights) landed
+    __syncthreads();          // ... for every thread; the other buffer is free
+    TileAt next;
+    if (i + 1 < end) {
+      next = locate(table, a.B, i + 1);
+      load_tile(buf0 + ((i + 1 - begin) & 1) * mma::tile_floats(d), a, table, next);
+      mma::cp_async_commit();
+    }
+    mma::mlp_tile<NTW>(buf, at.rows, d, w);
+    const int rr = threadIdx.x >> 2;
+    if (rr < at.rows) {
+      float* dst = a.y + ((long long)at.e * a.B * a.N + slot_row(table, at.r, a.N, at.row0 + rr)) * d.n2;
+      mma::store_row(dst, buf, ly, rr, d.n2, threadIdx.x & 3);
+    }
+    at = next;
   }
 }
 
-template <int CPT>
-static cudaError_t launch(const float* x, long long x_member_stride, const float* w1,
-                          const float* b1, const float* w2, const float* b2, float* y, int E,
-                          int B, int N, int F, int H1, int H2, int T, const BlockTable& table,
-                          int rows_per_block, size_t smem, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(banked_mlp_kernel<CPT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+template <int NTW>
+static cudaError_t launch(const BankArgs& a, const TileTable& table, int E, size_t smem, int sms,
+                          cudaStream_t stream) {
+  const auto kernel = banked_mlp_kernel<NTW>;
+  cudaError_t err = mma::allow_shared_memory(reinterpret_cast<const void*>(kernel), smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(table.first_block[table.ranges.n], E);
-  banked_mlp_kernel<CPT><<<grid, kThreads, smem, stream>>>(
-      x, x_member_stride, w1, b1, w2, b2, y, B, N, F, H1, H2, T, table, rows_per_block);
+  int per_sm = 0;  // blocks an SM at this shared memory
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, mma::kThreads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidValue;
+  const long long n_tiles = (long long)E * table.first_tile[table.ranges.n];
+  long long blocks = (long long)sms * per_sm;  // one wave
+  if (blocks > n_tiles) blocks = n_tiles;
+  const int per_block = (int)((n_tiles + blocks - 1) / blocks);
+  blocks = (n_tiles + per_block - 1) / per_block;
+  kernel<<<(unsigned)blocks, mma::kThreads, smem, stream>>>(a, table, (int)n_tiles, per_block);
   return cudaGetLastError();
 }
 
@@ -111,61 +163,45 @@ using namespace repro_torch;
 
 // x: (E, B, N, F) with rows of one member contiguous and member stride
 // x_member_stride (0: shared by all members).  w1 (E, T, F, H1), b1 (E, T, H1),
-// w2 (E, T, H1, H2), b2 (E, T, H2), y (E, B, N, H2): all contiguous fp32.
-// Launches on `stream` of CUDA device `device`; returns the cudaError_t of the
-// launch (0 on success).
+// w2 (E, T, H1, H2), b2 (E, T, H2), y (E, B, N, H2): all contiguous fp32, y
+// 16-byte aligned.  H1 and H2 are multiples of 8 up to 128.  Launches on
+// `stream` of CUDA device `device`; returns the cudaError_t of the launch (0 on
+// success).
 extern "C" int banked_mlp_launch(const float* x, long long x_member_stride, const float* w1,
                                  const float* b1, const float* w2, const float* b2, float* y,
                                  int E, int B, int N, int F, int H1, int H2, int T,
                                  SlotRanges ranges, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (ranges.n < 1 || ranges.n > kMaxRanges || E < 1 || B < 1 || F < 1 ||
-      H1 > 16 * kMaxColsPerThread || H2 > 16 * kMaxColsPerThread)
+  const mma::Dims dims{F, H1, H2};
+  if (ranges.n < 1 || ranges.n > kMaxRanges || E < 1 || B < 1 || N < 1 || !mma::widths_ok(dims) ||
+      (reinterpret_cast<size_t>(y) & 15) != 0 || (long long)E * B * N >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * (weight_floats(F, H1, H2) +
-                                       (long long)kTileRows * (tile_stride(F) + tile_stride(H1)));
-  int smem_max = 0;
-  cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  // dynamic shared memory plus the kernel's static row table must fit
-  if (smem + sizeof(long long) * kTileRows > (size_t)smem_max) return (int)cudaErrorInvalidValue;
-
-  // Tiles per block: enough blocks to fill the card about twice over (two
-  // blocks fit on one SM), at most 8 tiles so weights are staged per 512 rows.
-  long long tiles = 0;
+  TileTable table;
+  table.ranges = ranges;
+  table.first_tile[0] = 0;
   for (int r = 0; r < ranges.n; ++r) {
     if (ranges.start[r] < 0 || ranges.stop[r] > N || ranges.start[r] >= ranges.stop[r] ||
         ranges.type[r] < 0 || ranges.type[r] >= T)
       return (int)cudaErrorInvalidValue;
-    tiles += ((long long)B * (ranges.stop[r] - ranges.start[r]) + kTileRows - 1) / kTileRows;
-  }
-  int sms = 0;
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (sms < 1) sms = 1;
-  long long per_block = (tiles * E) / (2LL * sms);
-  per_block = per_block < 1 ? 1 : (per_block > 8 ? 8 : per_block);
-  const int rows_per_block = (int)per_block * kTileRows;
-
-  BlockTable table;
-  table.ranges = ranges;
-  table.first_block[0] = 0;
-  for (int r = 0; r < ranges.n; ++r) {
     const long long rows = (long long)B * (ranges.stop[r] - ranges.start[r]);
-    table.first_block[r + 1] = table.first_block[r] + (int)((rows + rows_per_block - 1) / rows_per_block);
+    table.first_tile[r + 1] = table.first_tile[r] + (int)((rows + mma::kRows - 1) / mma::kRows);
   }
+  if ((long long)E * table.first_tile[ranges.n] >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * (mma::weight_floats(dims) + 2LL * mma::tile_floats(dims));
+  const mma::DeviceInfo card = mma::device_info(device);
+  if (smem > (size_t)card.smem_max) return (int)cudaErrorInvalidValue;
+
+  const BankArgs a{x, x_member_stride, w1, b1, w2, b2, y, B, N, T, dims};
   cudaStream_t s = (cudaStream_t)stream;
-  switch (cols_per_thread(H1 > H2 ? H1 : H2)) {
+  switch (mma::n_tiles_per_warp(H1, H2)) {
     case 1:
-      return (int)launch<1>(x, x_member_stride, w1, b1, w2, b2, y, E, B, N, F, H1, H2, T, table,
-                            rows_per_block, smem, s);
+      return (int)launch<1>(a, table, E, smem, card.sms, s);
     case 2:
-      return (int)launch<2>(x, x_member_stride, w1, b1, w2, b2, y, E, B, N, F, H1, H2, T, table,
-                            rows_per_block, smem, s);
+      return (int)launch<2>(a, table, E, smem, card.sms, s);
     case 4:
-      return (int)launch<4>(x, x_member_stride, w1, b1, w2, b2, y, E, B, N, F, H1, H2, T, table,
-                            rows_per_block, smem, s);
+      return (int)launch<4>(a, table, E, smem, card.sms, s);
     default:
-      return (int)launch<8>(x, x_member_stride, w1, b1, w2, b2, y, E, B, N, F, H1, H2, T, table,
-                            rows_per_block, smem, s);
+      return (int)launch<8>(a, table, E, smem, card.sms, s);
   }
 }

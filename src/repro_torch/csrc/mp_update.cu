@@ -12,26 +12,29 @@
 // skeleton is shared by every candidate of the placed path.  slot_ranges, the
 // span, p and d are runtime arguments, not compile-time constants: one build
 // serves every query structure and every depth of the scan.  The output is a
-// fresh tensor: the aggregation reads rows of h that the update replaces.
+// fresh tensor, and every message reads h as it was before the step.
 //
-// What bounds it on this card: at the main path's shapes, arithmetic for the
-// rows it updates (2H*H1 + H1*H2 FMAs per selected row) and, in the scan plan
-// where only the rows at depth d are selected, the pass-through copy of h
-// (bytes).  This version runs plain fp32 FMA (no TF32, no tensor cores) so it
-// matches the plain PyTorch version to 1e-5.
+// What bounds it on this card: bytes.  The step copies h to out (377 MB in
+// and out at the scan step, 15 x 4096 x 12 x 64), while the MLP runs only on
+// the rows at depth d (about one row in 12 there), on the tensor cores in
+// 3xTF32 (mma_tile.cuh).
 //
-// Design: one block owns one member and a run of graphs.  It flags the rows
-// that take the update and copies the others 16 bytes a thread; then, one
-// slot range at a time, it compacts the range's selected (graph, row) pairs
-// into a list and, when there are any, stages that type's W1 and W2 in shared
-// memory (the 5-type bank, 245 KB at H = 64, would not fit) and runs the
-// 2-layer MLP only on those rows in 64-row tiles.  The Pallas kernel
-// computed every span row and selected afterwards; skipping unselected rows
-// gives the same output, since each row's result depends only on its own
-// inputs.  Row order in the list does not change any value.
+// Design: one block owns one member and a run of G graphs, as many as its
+// shared memory holds (G = 39 at H = 64: 49.6 KB of weights, a 33.8 KB z
+// tile, 3.8 KB a graph).  It loads its graphs' depth and mask, then their h
+// rows and a_flow, into shared memory with cp.async: h crosses the bus once
+// in.  From depth and mask it lists each slot range's selected rows and
+// starts the cp.async of the first selected range's weights, which lands
+// while h does.  It writes the other rows to out from shared memory; then, per
+// slot range with selected rows, it builds each row's z = [h_v, sum_u a[u, v]
+// h_u] from shared memory into the tile, split into TF32 halves once, runs the
+// tensor-core MLP on the tile, and writes the rows out.  The Pallas kernel
+// computed every span row and selected afterwards; computing only the
+// selected rows gives the same output, since each row's result depends only
+// on its own inputs.  The order of rows in a list does not change any value.
 #include <cuda_runtime.h>
 
-#include "mlp_tile.cuh"
+#include "mma_tile.cuh"
 
 namespace repro_torch {
 
@@ -42,121 +45,208 @@ struct StepArgs {
   int depth;                  // the level d being updated
 };
 
-template <int CPT>
-__global__ void __launch_bounds__(kThreads) mp_update_kernel(
-    const float* __restrict__ h, float* __restrict__ out, const float* __restrict__ a_flow,
-    long long a_batch_stride, const int* __restrict__ depth, long long depth_batch_stride,
-    const float* __restrict__ mask, long long mask_batch_stride, const float* __restrict__ w1,
-    const float* __restrict__ b1, const float* __restrict__ w2, const float* __restrict__ b2,
-    int B, int N, int H, int H1, int T, StepArgs args, int graphs_per_block) {
-  extern __shared__ float smem[];
+struct StepTensors {
+  const float* h;
+  float* out;
+  const float* a_flow;
+  long long a_bs;
+  const int* depth;
+  long long d_bs;
+  const float* mask;
+  long long m_bs;
+  const float *w1, *b1, *w2, *b2;
+  int B, N, H, T;
+  mma::Dims dims;  // k = 2H, n1 = H1, n2 = H
+};
+
+// Shared memory of one block, in floats from its start: weights, the tile,
+// then G graphs' h rows, a_flow, depth, mask, the selected-row lists, a flag
+// per row that keeps h, and the per-range counts.  A field read at batch
+// stride 0 is held once.
+struct StepSmem {
+  long long tile, h, a, depth, mask, list, keep, count, total;
+};
+
+// Rows of one z tile.  The selected rows of a block's slot range are few (about
+// one per graph at a scan step), and a tile of (hi, lo) pairs takes twice the
+// shared memory of an fp32 one.
+constexpr int kZRows = 32;
+
+__host__ __device__ inline long long round4(long long n) { return (n + 3) & ~3LL; }
+
+__host__ __device__ inline StepSmem step_smem(mma::Dims d, int G, int N, int H, bool a_shared,
+                                              bool d_shared, bool m_shared) {
+  StepSmem s;
+  s.tile = mma::weight_floats(d);
+  s.h = s.tile + mma::split_tile_floats(d, kZRows);
+  s.a = s.h + (long long)G * N * H;
+  s.depth = s.a + round4((a_shared ? 1LL : G) * N * N);
+  s.mask = s.depth + round4((d_shared ? 1LL : G) * N);
+  s.list = s.mask + round4((m_shared ? 1LL : G) * N);
+  s.keep = s.list + round4((long long)G * N);
+  s.count = s.keep + round4(((long long)G * N + 3) / 4);
+  s.total = s.count + round4(kMaxRanges);
+  return s;
+}
+
+// dst[gi * n + j] = src[(g0 + gi) * stride + j] for gi < graphs, j < n: rows
+// of a per-graph field, asynchronously, 4 bytes a thread.
+__device__ inline void copy_rows(int* dst, const int* src, int g0, int graphs, int n, long long stride) {
+  if (stride == n) {
+    for (int i = threadIdx.x; i < graphs * n; i += blockDim.x) mma::cp_async4(dst + i, src + (long long)g0 * n + i);
+  } else {
+    for (int i = threadIdx.x; i < graphs * n; i += blockDim.x)
+      mma::cp_async4(dst + i, src + (long long)(g0 + i / n) * stride + i % n);
+  }
+}
+
+// The first slot range after r with selected rows (ranges.n if none).
+__device__ __forceinline__ int next_selected(const SlotRanges& ranges, const int* count, int r) {
+  ++r;
+  while (r < ranges.n && count[r] == 0) ++r;
+  return r;
+}
+
+template <int NTW>
+__global__ void __launch_bounds__(mma::kThreads, 1)
+    mp_update_kernel(StepTensors a, StepArgs args, int G) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
   const int e = blockIdx.y;
-  const int g0 = blockIdx.x * graphs_per_block;
-  const int g1 = min(B, g0 + graphs_per_block);
-  const int K = 2 * H;
+  const int g0 = blockIdx.x * G;
+  const int ng = min(G, a.B - g0);
+  const int N = a.N, H = a.H, tid = threadIdx.x;
+  const StepSmem lay = step_smem(a.dims, G, N, H, a.a_bs == 0, a.d_bs == 0, a.m_bs == 0);
+  float* weights = smem;
+  float* tile = smem + lay.tile;
+  float* hs = smem + lay.h;
+  float* as = smem + lay.a;
+  int* ds = reinterpret_cast<int*>(smem + lay.depth);
+  float* ms = smem + lay.mask;
+  int* list = reinterpret_cast<int*>(smem + lay.list);  // selected rows (graph * N + v)
+  unsigned char* keep = reinterpret_cast<unsigned char*>(smem + lay.keep);
+  int* count = reinterpret_cast<int*>(smem + lay.count);
+  const int n_rows = ng * N;
+  const long long first = ((long long)e * a.B + g0) * N * H;  // the block's first element of h
 
-  float* w1s = smem;
-  float* b1s = w1s + K * H1;
-  float* w2s = b1s + H1;
-  float* b2s = w2s + H1 * H;
-  float* zs = b2s + H;
-  const int zs_stride = tile_stride(K);
-  float* hs = zs + kTileRows * zs_stride;
-  const int hs_stride = tile_stride(H1);
-  const int n_rows = (g1 - g0) * N;  // the block's rows, graph-major
-  int* list = reinterpret_cast<int*>(hs + kTileRows * hs_stride);
-  unsigned char* chosen = reinterpret_cast<unsigned char*>(list + n_rows);
-  __shared__ int n_selected;
-  __shared__ long long row_of[kTileRows];  // (graph * N + row) of each tile row
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // 1. depth and mask, then h and a_flow, asynchronously
+  copy_rows(ds, a.depth, g0, a.d_bs ? ng : 1, N, a.d_bs);
+  copy_rows(reinterpret_cast<int*>(ms), reinterpret_cast<const int*>(a.mask), g0, a.m_bs ? ng : 1, N, a.m_bs);
+  if (tid < kMaxRanges) count[tid] = 0;
+  mma::cp_async_commit();
+  mma::copy_async(hs, a.h + first, n_rows * H);
+  if (a.a_bs == (long long)N * N)
+    mma::copy_async(as, a.a_flow + g0 * a.a_bs, n_rows * N);
+  else
+    for (int gi = 0; gi < (a.a_bs ? ng : 1); ++gi)
+      mma::copy_async(as + gi * N * N, a.a_flow + (g0 + gi) * a.a_bs, N * N);
+  mma::cp_async_commit();
 
-  const float* he = h + (long long)e * B * N * H;
-  float* oe = out + (long long)e * B * N * H;
-  const long long first = (long long)g0 * N * H;  // the block's first element
-
-  // 0. which of the block's rows take the update
-  for (int row = threadIdx.x; row < n_rows; row += blockDim.x) {
-    const int g = g0 + row / N, v = row % N;
-    chosen[row] = v >= args.span_start && v < args.span_stop &&
-                  depth[g * depth_batch_stride + v] == args.depth &&
-                  mask[g * mask_batch_stride + v] > 0.f;
+  // 2. which rows take the update: a list per slot range, range r's entries
+  //    at [ng * (start_r - span_start), ...)
+  mma::cp_async_wait<1>();
+  __syncthreads();
+  for (int row = tid; row < n_rows; row += blockDim.x) {
+    const int gi = row / N, v = row - gi * N;
+    const bool sel = v >= args.span_start && v < args.span_stop &&
+               ds[(a.d_bs ? gi * N : 0) + v] == args.depth && ms[(a.m_bs ? gi * N : 0) + v] > 0.f;
+    keep[row] = !sel;
+    if (sel) {
+      int r = 0;
+      while (args.ranges.stop[r] <= v) ++r;
+      list[ng * (args.ranges.start[r] - args.span_start) + atomicAdd(&count[r], 1)] = row;
+    }
+  }
+  __syncthreads();
+  const long long et = (long long)e * a.T;
+  const mma::Dims d = a.dims;
+  // the selected ranges in order; the first one's weights load while h lands
+  const int r0 = next_selected(args.ranges, count, -1);
+  if (r0 < args.ranges.n) {
+    mma::stage_weights(weights, d, et + args.ranges.type[r0], a.w1, a.b1, a.w2, a.b2);
+    mma::cp_async_wait<1>();
+  } else {
+    mma::cp_async_wait<0>();
   }
   __syncthreads();
 
-  // 1. the other rows keep h: everything outside the span, and unselected span rows
-  if (H % 4 == 0 && ((reinterpret_cast<size_t>(he + first) | reinterpret_cast<size_t>(oe + first)) & 15) == 0) {
-    const int H4 = H / 4;
-    const float4* src = reinterpret_cast<const float4*>(he + first);
-    float4* dst = reinterpret_cast<float4*>(oe + first);
-    for (int i = threadIdx.x; i < n_rows * H4; i += blockDim.x)
-      if (!chosen[i / H4]) dst[i] = src[i];
-  } else {
-    for (int i = threadIdx.x; i < n_rows * H; i += blockDim.x)
-      if (!chosen[i / H]) oe[first + i] = he[first + i];
+  // 3. the rows that keep h, from shared memory: thread tid copies piece
+  //    tid % per_row of rows tid / per_row + k * rows_per_pass
+  {
+    float* oe = a.out + first;
+    const bool vec = H % 4 == 0 && mma::aligned16(oe);
+    const int per_row = vec ? H / 4 : H, rows_per_pass = blockDim.x / per_row;
+    const int r_off = tid / per_row, piece = tid - r_off * per_row;
+    if (r_off < rows_per_pass)
+      for (int row = r_off; row < n_rows; row += rows_per_pass) {
+        if (!keep[row]) continue;
+        const int i = row * per_row + piece;
+        if (vec)
+          reinterpret_cast<float4*>(oe)[i] = reinterpret_cast<const float4*>(hs)[i];
+        else
+          oe[i] = hs[i];
+      }
   }
 
-  // 2. per slot range: list its selected rows; if any, stage its type's
-  //    weights and run the MLP on them
-  for (int r = 0; r < args.ranges.n; ++r) {
-    const int t = args.ranges.type[r];
-    const int start = args.ranges.start[r];
-    const int L = args.ranges.stop[r] - start;
-    __syncthreads();  // the previous range is done with the weights and the list
-    if (threadIdx.x == 0) n_selected = 0;
-    __syncthreads();
-    for (int i = threadIdx.x; i < (g1 - g0) * L; i += blockDim.x) {
-      const int item = (i / L) * N + start + i % L;
-      if (chosen[item]) list[atomicAdd(&n_selected, 1)] = item;
+  // 4. per selected slot range: z tiles through the MLP
+  const mma::Staged w = mma::staged_at(weights, d);
+  const mma::Layout lz = mma::split_layout(d.k), ly = mma::act_layout(d.n2);
+  long long staged = r0 < args.ranges.n ? et + args.ranges.type[r0] : -1;
+  for (int r = r0; r < args.ranges.n; r = next_selected(args.ranges, count, r)) {
+    const int n_sel = count[r];
+    const int* seg = list + ng * (args.ranges.start[r] - args.span_start);
+    const long long key = et + args.ranges.type[r];
+    if (key != staged) {  // the previous range's last tile is done with the weights
+      mma::stage_weights(weights, d, key, a.w1, a.b1, a.w2, a.b2);
+      staged = key;
     }
-    __syncthreads();
-    const int count = n_selected;
-    if (count == 0) continue;
-    const long long et = (long long)e * T + t;
-    copy_block(w1s, w1 + et * K * H1, K * H1);
-    copy_block(b1s, b1 + et * H1, H1);
-    copy_block(w2s, w2 + et * H1 * H, H1 * H);
-    copy_block(b2s, b2 + et * H, H);
-    __syncthreads();
-    for (int tile0 = 0; tile0 < count; tile0 += kTileRows) {
-      const int rows = min(kTileRows, count - tile0);
-      // z = [h[v], msg[v]], one warp per row, lanes over the columns
-      for (int rr = warp; rr < rows; rr += kThreads / 32) {
-        const int item = list[tile0 + rr];
-        const int g = g0 + item / N, v = item % N;
-        if (lane == 0) row_of[rr] = (long long)g * N + v;
-        const float* hg = he + (long long)g * N * H;
-        const float* ag = a_flow + g * a_batch_stride;
-        for (int c = lane; c < H; c += 32) {
-          float msg = 0.f;
-          for (int u = 0; u < args.parent_rows; ++u) msg = fmaf(ag[u * N + v], hg[u * H + c], msg);
-          zs[rr * zs_stride + c] = hg[v * H + c];
-          zs[rr * zs_stride + H + c] = msg;
+    for (int tile0 = 0; tile0 < n_sel; tile0 += kZRows) {
+      const int rows = min(kZRows, n_sel - tile0);
+      // z = [h_v, msg_v] as (hi, lo) pairs, split once here for all 8 warps;
+      // thread tid builds column tid % H of rows tid / H + k * rows_per_pass
+      const int rows_per_pass = blockDim.x / H, r_off = tid / H, c = tid - r_off * H;
+      if (r_off < rows_per_pass)
+        for (int rr = r_off; rr < rows; rr += rows_per_pass) {
+          const int row = seg[tile0 + rr], gi = row / N, v = row - gi * N;
+          const float* hg = hs + gi * N * H + c;
+          const float* ag = as + (a.a_bs ? gi * N * N : 0) + v;
+          // four partial sums, so the loads are not one dependent chain
+          float m0 = 0.f, m1 = 0.f, m2 = 0.f, m3 = 0.f;
+          int u = 0;
+          for (; u + 4 <= args.parent_rows; u += 4) {
+            m0 = fmaf(ag[u * N], hg[u * H], m0);
+            m1 = fmaf(ag[(u + 1) * N], hg[(u + 1) * H], m1);
+            m2 = fmaf(ag[(u + 2) * N], hg[(u + 2) * H], m2);
+            m3 = fmaf(ag[(u + 3) * N], hg[(u + 3) * H], m3);
+          }
+          for (; u < args.parent_rows; ++u) m0 = fmaf(ag[u * N], hg[u * H], m0);
+          uint32_t hi, lo;
+          float2* zr = reinterpret_cast<float2*>(tile) + rr * lz.stride;
+          mma::split(hg[v * H], hi, lo);
+          zr[c] = make_float2(__uint_as_float(hi), __uint_as_float(lo));
+          mma::split((m0 + m1) + (m2 + m3), hi, lo);
+          zr[H + c] = make_float2(__uint_as_float(hi), __uint_as_float(lo));
         }
+      mma::cp_async_wait<0>();  // this thread's share of the weights
+      __syncthreads();          // z and the weights, for every thread
+      mma::mlp_tile<NTW, true, kZRows>(tile, rows, d, w);
+      const int rr = tid >> 2;
+      if (rr < rows) {
+        const int row = seg[tile0 + rr], gi = row / N, v = row - gi * N;
+        mma::store_row(a.out + first + ((long long)gi * N + v) * H, tile, ly, rr, H, tid & 3);
       }
-      __syncthreads();
-      dense_tile<CPT, true>(zs, zs_stride, K, w1s, b1s, H1, rows,
-                            [&](int rr, int c, float v) { hs[rr * hs_stride + c] = v; });
-      __syncthreads();
-      dense_tile<CPT, false>(hs, hs_stride, H1, w2s, b2s, H, rows,
-                             [&](int rr, int c, float v) { oe[row_of[rr] * H + c] = v; });
-      __syncthreads();  // row_of, zs and hs are rewritten by the next tile
+      __syncthreads();  // the tile is rewritten by the next z
     }
   }
 }
 
-template <int CPT>
-static cudaError_t launch(const float* h, float* out, const float* a_flow, long long a_bs,
-                          const int* depth, long long d_bs, const float* mask, long long m_bs,
-                          const float* w1, const float* b1, const float* w2, const float* b2,
-                          int E, int B, int N, int H, int H1, int T, const StepArgs& args,
-                          int graphs_per_block, size_t smem, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(mp_update_kernel<CPT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+template <int NTW>
+static cudaError_t launch(const StepTensors& a, const StepArgs& args, int E, int G, size_t smem,
+                          cudaStream_t stream) {
+  const cudaError_t err = mma::allow_shared_memory(reinterpret_cast<const void*>(mp_update_kernel<NTW>), smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((B + graphs_per_block - 1) / graphs_per_block, E);
-  mp_update_kernel<CPT><<<grid, kThreads, smem, stream>>>(h, out, a_flow, a_bs, depth, d_bs, mask,
-                                                         m_bs, w1, b1, w2, b2, B, N, H, H1, T,
-                                                         args, graphs_per_block);
+  dim3 grid((a.B + G - 1) / G, E);
+  mp_update_kernel<NTW><<<grid, mma::kThreads, smem, stream>>>(a, args, G);
   return cudaGetLastError();
 }
 
@@ -164,12 +254,13 @@ static cudaError_t launch(const float* h, float* out, const float* a_flow, long 
 
 using namespace repro_torch;
 
-// h, out: (E, B, N, H) contiguous fp32.  a_flow: B graphs of (N, N) fp32 at
-// batch stride a_batch_stride (0: one shared graph); depth int32 and mask fp32:
-// B rows of N at their batch strides.  w1 (E, T, 2H, H1), b1 (E, T, H1),
-// w2 (E, T, H1, H), b2 (E, T, H): contiguous fp32.  The ranges tile
-// [span_start, span_stop).  Launches on `stream` of CUDA device `device`;
-// returns the cudaError_t of the launch (0 on success).
+// h, out: (E, B, N, H) contiguous fp32, out 16-byte aligned.  a_flow: B graphs
+// of (N, N) fp32 at batch stride a_batch_stride (0: one shared graph); depth
+// int32 and mask fp32: B rows of N at their batch strides.  w1 (E, T, 2H, H1),
+// b1 (E, T, H1), w2 (E, T, H1, H), b2 (E, T, H): contiguous fp32.  H and H1 are
+// multiples of 8 up to 128.  The ranges tile [span_start, span_stop).
+// Launches on `stream` of CUDA device `device`; returns the cudaError_t of the
+// launch (0 on success).
 extern "C" int mp_update_launch(const float* h, float* out, const float* a_flow,
                                 long long a_batch_stride, const int* depth,
                                 long long depth_batch_stride, const float* mask,
@@ -179,9 +270,10 @@ extern "C" int mp_update_launch(const float* h, float* out, const float* a_flow,
                                 int parent_rows, int d, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (ranges.n < 1 || ranges.n > kMaxRanges || E < 1 || B < 1 || N < 1 || H < 1 ||
-      H > 16 * kMaxColsPerThread || H1 > 16 * kMaxColsPerThread || span_start < 0 ||
-      span_stop > N || span_start >= span_stop || parent_rows < 1 || parent_rows > N)
+  const mma::Dims dims{2 * H, H1, H};
+  if (ranges.n < 1 || ranges.n > kMaxRanges || E < 1 || B < 1 || N < 1 || !mma::widths_ok(dims) ||
+      span_start < 0 || span_stop > N || span_start >= span_stop || parent_rows < 1 ||
+      parent_rows > N || (reinterpret_cast<size_t>(out) & 15) != 0)
     return (int)cudaErrorInvalidValue;
   int edge = span_start;
   for (int r = 0; r < ranges.n; ++r) {
@@ -192,22 +284,19 @@ extern "C" int mp_update_launch(const float* h, float* out, const float* a_flow,
   }
   if (edge != span_stop) return (int)cudaErrorInvalidValue;
 
-  int sms = 0;
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (sms < 1) sms = 1;
-  // Graphs per block: enough blocks to fill the card about twice over, at
-  // most 64 graphs (the selected-row list then holds at most 64 * N entries).
-  long long gpb = ((long long)B * E + 2LL * sms - 1) / (2LL * sms);
-  gpb = gpb < 1 ? 1 : (gpb > 64 ? 64 : gpb);
-  const size_t smem =
-      sizeof(float) * (weight_floats(2 * H, H1, H) +
-                       (long long)kTileRows * (tile_stride(2 * H) + tile_stride(H1))) +
-      (sizeof(int) + sizeof(unsigned char)) * gpb * N;  // the selected-row list and flags
-  int smem_max = 0;
-  cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  // dynamic shared memory plus the kernel's static counter and row table must fit
-  if (smem + sizeof(int) + sizeof(long long) * kTileRows > (size_t)smem_max)
-    return (int)cudaErrorInvalidValue;
+  const mma::DeviceInfo card = mma::device_info(device);
+  const bool a0 = a_batch_stride == 0, d0 = depth_batch_stride == 0, m0 = mask_batch_stride == 0;
+  auto bytes = [&](int G) { return sizeof(float) * (size_t)step_smem(dims, G, N, H, a0, d0, m0).total; };
+  // Graphs per block: the most that one block's shared memory holds (one block
+  // an SM), and no more than fill the card once over.  Two blocks an SM leave
+  // room for 8 graphs, whose slot ranges select about 3 rows each at a scan
+  // step, so every weight stage and every 16-row MMA tile serves a handful of
+  // rows, and the step ran slower that way.
+  const long long fill = ((long long)B * E + card.sms - 1) / card.sms;
+  int G = 1;
+  while (G < fill && G < B && bytes(G + 1) <= (size_t)card.smem_max) ++G;
+  const size_t smem = bytes(G);
+  if (smem > (size_t)card.smem_max) return (int)cudaErrorInvalidValue;
 
   StepArgs args;
   args.ranges = ranges;
@@ -215,23 +304,17 @@ extern "C" int mp_update_launch(const float* h, float* out, const float* a_flow,
   args.span_stop = span_stop;
   args.parent_rows = parent_rows;
   args.depth = d;
+  const StepTensors a{h, out, a_flow, a_batch_stride, depth, depth_batch_stride, mask,
+                      mask_batch_stride, w1, b1, w2, b2, B, N, H, T, dims};
   cudaStream_t s = (cudaStream_t)stream;
-  switch (cols_per_thread(H > H1 ? H : H1)) {
+  switch (mma::n_tiles_per_warp(H1, H)) {
     case 1:
-      return (int)launch<1>(h, out, a_flow, a_batch_stride, depth, depth_batch_stride, mask,
-                            mask_batch_stride, w1, b1, w2, b2, E, B, N, H, H1, T, args, (int)gpb,
-                            smem, s);
+      return (int)launch<1>(a, args, E, G, smem, s);
     case 2:
-      return (int)launch<2>(h, out, a_flow, a_batch_stride, depth, depth_batch_stride, mask,
-                            mask_batch_stride, w1, b1, w2, b2, E, B, N, H, H1, T, args, (int)gpb,
-                            smem, s);
+      return (int)launch<2>(a, args, E, G, smem, s);
     case 4:
-      return (int)launch<4>(h, out, a_flow, a_batch_stride, depth, depth_batch_stride, mask,
-                            mask_batch_stride, w1, b1, w2, b2, E, B, N, H, H1, T, args, (int)gpb,
-                            smem, s);
+      return (int)launch<4>(a, args, E, G, smem, s);
     default:
-      return (int)launch<8>(h, out, a_flow, a_batch_stride, depth, depth_batch_stride, mask,
-                            mask_batch_stride, w1, b1, w2, b2, E, B, N, H, H1, T, args, (int)gpb,
-                            smem, s);
+      return (int)launch<8>(a, args, E, G, smem, s);
   }
 }

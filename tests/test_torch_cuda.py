@@ -47,24 +47,39 @@ def cuda():
     return torch.device("cuda")
 
 
-def _bank(gen, E, T, F, H, device):
-    """Random member-stacked 2-layer bank with nonzero biases."""
+def _bank(gen, E, T, F, H, device, H2=None):
+    """Random member-stacked 2-layer bank (F -> H -> H2) with nonzero biases."""
+    H2 = H if H2 is None else H2
 
     def r(*shape):
         return (0.2 * torch.randn(shape, generator=gen)).to(device)
 
-    return {"layers": [{"w": r(E, T, F, H), "b": r(E, T, H)}, {"w": r(E, T, H, H), "b": r(E, T, H)}]}
+    return {"layers": [{"w": r(E, T, F, H), "b": r(E, T, H)}, {"w": r(E, T, H, H2), "b": r(E, T, H2)}]}
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize(
-    "F,T,N,B,shared",
-    [(39, 5, 12, 1, True), (4, 1, 8, 1, True), (128, 5, 12, 1024, False), (128, 1, 8, 4096, False), (128, 5, 7, 3, False)],
+    "F,T,N,B,shared,H1,H2,seed",
+    [
+        (39, 5, 12, 1, True, 64, 64, 285),  # op_enc: K padded 39 -> 40, a batch of one
+        (4, 1, 8, 1, True, 64, 64, 36),  # hw_enc: K padded 4 -> 8
+        (128, 5, 12, 1024, False, 64, 64, 908),  # op_upd
+        (128, 1, 8, 4096, False, 64, 64, 904),  # hw_upd
+        (128, 5, 7, 3, False, 64, 64, 903),  # 21 rows: ranges of 3, 9 and 9 rows
+        (39, 5, 12, 37, True, 32, 32, 349),  # width 32, rows no multiple of 16
+        (128, 5, 12, 333, False, 128, 128, 1164),  # width 128, 8 n-tiles a warp
+        (64, 5, 12, 77, False, 128, 32, 620),  # H1 != H2
+        (24, 1, 5, 13, True, 40, 56, 269),  # widths no multiple of 32: padded, unswizzled layouts
+        (4, 5, 12, 1, False, 8, 16, 64),  # one n-tile, a batch of one
+    ],
 )
-def test_banked_mlp_kernel_matches_plain(cuda, F, T, N, B, shared):
-    E, H = 15, 64
-    gen = torch.Generator().manual_seed(F * 7 + N)
-    p = _bank(gen, E, T, F, H, cuda)
+def test_banked_mlp_kernel_matches_plain(cuda, F, T, N, B, shared, H1, H2, seed):
+    """Every row of every range within 1e-5 of the plain version (3xTF32
+    tensor-core products), member stride 0 where shared, and two launches
+    bitwise equal."""
+    E = 15
+    gen = torch.Generator().manual_seed(seed)
+    p = _bank(gen, E, T, F, H1, cuda, H2)
     x = torch.randn((1 if shared else E, B, N, F), generator=gen).to(cuda).expand(E, B, N, F)
     if T == 1:
         ranges = ((0, 0, N),)
@@ -72,18 +87,43 @@ def test_banked_mlp_kernel_matches_plain(cuda, F, T, N, B, shared):
         ranges = SLOT_RANGES if N == 12 else ((2, 0, 1), (0, 1, 4), (4, 4, 7))
     before = bank_ops.banked_mlp_slotted.launches
     got = bank_ops.banked_mlp_slotted(p, x, ranges)
+    again = bank_ops.banked_mlp_slotted(p, x, ranges)
     torch.cuda.synchronize()
-    assert bank_ops.banked_mlp_slotted.launches == before + 1
+    assert bank_ops.banked_mlp_slotted.launches == before + 2
     torch.testing.assert_close(got, banked_mlp_slotted_ref(p, x, ranges), **TOL)
+    assert torch.equal(got, again)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shared", [False, True])
-@pytest.mark.parametrize("span", [None, (3, 7)])
-def test_mp_update_kernel_matches_plain(cuda, shared, span):
-    E, B, N, H = 15, 512, 12, 64
-    gen = torch.Generator().manual_seed(3)
-    p = _bank(gen, E, 5, 2 * H, H, cuda)
+def test_banked_mlp_kernel_refuses_other_widths(cuda):
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn((2, 3, 12, 8), generator=gen).to(cuda)
+    for H1, H2 in ((12, 16), (16, 136)):
+        with pytest.raises(RuntimeError, match="cudaError_t 1"):
+            bank_ops.banked_mlp_slotted(_bank(gen, 2, 5, 8, H1, cuda, H2), x, SLOT_RANGES)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "shared,span,B,H,H1,seed",
+    [
+        (False, None, 512, 64, 64, 3),
+        (True, None, 512, 64, 64, 3),
+        (False, (3, 7), 512, 64, 64, 3),
+        (True, (3, 7), 512, 64, 64, 3),
+        (False, None, 1, 64, 64, 68),  # a batch of one
+        (False, None, 37, 32, 32, 72),  # width 32, graphs no multiple of a block's run
+        (True, (3, 7), 203, 32, 48, 254),  # H1 != H, shared fields with a span
+        (False, (0, 12), 300, 64, 32, 335),
+    ],
+)
+def test_mp_update_kernel_matches_plain(cuda, shared, span, B, H, H1, seed):
+    """Random a_flow over random depths, so a selected row is often a parent
+    of another selected row: every message must read h before the step.
+    Within 1e-5 of the plain version, and two launches bitwise equal."""
+    E, N = 15, 12
+    gen = torch.Generator().manual_seed(seed)
+    p = _bank(gen, E, 5, 2 * H, H1, cuda, H)
     h = torch.randn((E, B, N, H), generator=gen).to(cuda)
     lead = () if shared else (B,)
     a = (torch.rand(lead + (N, N), generator=gen) > 0.7).float()
@@ -92,12 +132,35 @@ def test_mp_update_kernel_matches_plain(cuda, shared, span):
     depth = torch.randint(0, 4, lead + (N,), generator=gen, dtype=torch.int32)
     mask = (torch.rand(lead + (N,), generator=gen) > 0.2).float()
     a, depth, mask = a.to(cuda), depth.to(cuda), mask.to(cuda)
-    ranges = SLOT_RANGES if span is None else ((1, 3, 7),)
-    kw = {} if span is None else dict(row_span=span, parent_rows=span[0])
+    ranges = ((1, 3, 7),) if span == (3, 7) else SLOT_RANGES
+    kw = {} if span is None else dict(row_span=span, parent_rows=span[0] if span[0] > 0 else N)
     for d in (1, 2, 3):
         got = mp_ops.mp_update(p, h, a, depth, mask, d, ranges, **kw)
+        again = mp_ops.mp_update(p, h, a, depth, mask, d, ranges, **kw)
         torch.cuda.synchronize()
         torch.testing.assert_close(got, mp_update_ref(p, h, a, depth, mask, d, ranges, **kw), **TOL)
+        assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+def test_mp_update_selected_parent_of_selected_row(cuda):
+    """A chain 0 -> 1 -> 2 with rows 1 and 2 both at depth d: row 2's message
+    must use row 1's h before the step, not its update."""
+    E, B, N, H = 15, 40, 12, 64
+    gen = torch.Generator().manual_seed(8)
+    p = _bank(gen, E, 5, 2 * H, H, cuda)
+    h = torch.randn((E, B, N, H), generator=gen).to(cuda)
+    a = torch.zeros((B, N, N))
+    a[:, 0, 1] = a[:, 1, 2] = a[:, 0, 2] = 1.0
+    depth = torch.zeros((B, N), dtype=torch.int32)
+    depth[:, 1:3] = 1
+    mask = torch.ones((B, N))
+    a, depth, mask = a.to(cuda), depth.to(cuda), mask.to(cuda)
+    ranges = ((0, 0, 3), (1, 3, 12))
+    got = mp_ops.mp_update(p, h, a, depth, mask, 1, ranges)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, mp_update_ref(p, h, a, depth, mask, 1, ranges), **TOL)
+    assert not torch.equal(got[:, :, 1], h[:, :, 1]) and torch.equal(got[:, :, 3:], h[:, :, 3:])
 
 
 @pytest.mark.gpu

@@ -29,6 +29,7 @@ from repro_torch.kernels.banked_mlp import ops as bank_ops
 from repro_torch.kernels.banked_mlp.ref import banked_mlp_slotted_ref
 from repro_torch.kernels.mp_sweep import ops as sweep_ops
 from repro_torch.kernels.mp_update import ops as mp_ops
+from repro_torch.kernels.mp_update.ref import mp_update_ref
 from repro_torch.kernels.seg_gather import ops as seg_ops
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -271,3 +272,64 @@ def test_seg_gather_wrapper_checks():
     with pytest.raises(TypeError, match="float32"):
         seg_ops.segment_sum(h.double(), idx[..., 0], 8)
     assert seg_ops.gather_sum.launches == seg_ops.segment_sum.launches == 0
+
+
+def _tf32(a: np.ndarray) -> np.ndarray:
+    """fp32 rounded to nearest, ties away from zero, at TF32's 10 mantissa
+    bits: what ``cvt.rna.tf32.f32`` gives the tensor cores."""
+    u = np.ascontiguousarray(a, dtype=np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _tf32_matmul(x: torch.Tensor, w: torch.Tensor, split: bool) -> torch.Tensor:
+    """``x @ w`` with TF32 operands: one product of the rounded operands, or
+    the 3xTF32 split ``lo(x) hi(w) + hi(x) lo(w) + hi(x) hi(w)`` (small
+    products first, ``lo(x) lo(w)`` dropped).  Each product of two TF32
+    values is exact in fp32; the sums run in fp32."""
+    xh, wh = _tf32(x.numpy()), _tf32(w.numpy())
+    big = _t(xh) @ _t(wh)
+    if not split:
+        return big
+    xl, wl = _tf32(x.numpy() - xh), _tf32(w.numpy() - wh)
+    return (_t(xl) @ _t(wh) + _t(xh) @ _t(wl)) + big
+
+
+def _tf32_bank(split: bool):
+    """``banked_mlp_slotted_ref`` for member-stacked weights with its two
+    products in TF32 (``apply_fn`` of ``mp_update_ref``)."""
+
+    def apply(params, x, slot_ranges):
+        l1, l2 = params["layers"]
+        pieces = []
+        for t, s, e in slot_ranges:
+            h = torch.relu(_tf32_matmul(x[..., s:e, :], l1["w"][:, t, None], split) + l1["b"][:, t, None, None])
+            pieces.append(_tf32_matmul(h, l2["w"][:, t, None], split) + l2["b"][:, t, None, None])
+        return torch.cat(pieces, dim=-2)
+
+    return apply
+
+
+@pytest.mark.parametrize("split", [True, False], ids=["3xtf32", "tf32"])
+@pytest.mark.parametrize("case", ["op_upd", "mp_update"])
+def test_tf32_split_holds_the_kernel_tolerance(case, split):
+    """Why the tensor-core MLP tile (``csrc/mma_tile.cuh``) splits each fp32
+    operand into two TF32 values: at the main path's widths (op_upd: F = 128,
+    H = 64; an mp_update scan step: H = 64), glorot weights and ``randn``
+    inputs, the 3xTF32 products stay within ``TOL`` of the fp32 plain version
+    and a single TF32 product does not."""
+    E, B, N, H = 2, 16, 12, 64
+    rng = np.random.default_rng(14)
+    p = nn.params_from_numpy(_bank(14, 5, [2 * H, H, H], members=E))
+    h = _t(rng.normal(size=(E, B, N, 2 * H if case == "op_upd" else H)).astype(np.float32))
+    if case == "op_upd":
+        want = banked_mlp_slotted_ref(p, h, SLOT_RANGES)
+        got = _tf32_bank(split)(p, h, SLOT_RANGES)
+    else:
+        _, a, depth, mask = (_t(x) for x in _mp_inputs(14, B, H))
+        depth = _t(rng.integers(1, 3, size=(B, N)).astype(np.int32))
+        want = mp_ops.mp_update(p, h, a, depth, mask, 2, SLOT_RANGES)
+        got = mp_update_ref(p, h, a, depth, mask, 2, SLOT_RANGES, apply_fn=_tf32_bank(split))
+    err = float((got - want).abs().max())
+    assert err > 0.0
+    within = bool(torch.allclose(got, want, **TOL))
+    assert within is split, f"max abs err {err} against TOL {TOL}"
