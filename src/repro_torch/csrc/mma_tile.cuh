@@ -1,5 +1,5 @@
 // The tensor-core MLP tile of the hand-written Hopper kernels (banked_mlp.cu,
-// mp_update.cu).
+// mp_update.cu, mp_sweep.cu), and the slot-range table they take by value.
 //
 // One block of 8 warps computes the fused y = relu(x @ W1 + b1) @ W2 + b2 over
 // a tile of up to 64 rows held in shared memory, with one node type's W1/W2
@@ -55,9 +55,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "mlp_tile.cuh"  // SlotRanges, kMaxRanges
-
 namespace repro_torch {
+
+constexpr int kMaxRanges = 12;  // MAX_OPS: at most one slot range per row
+
+// Slot ranges (type, start, stop), absolute rows; passed to kernels by value.
+struct SlotRanges {
+  int n;
+  int type[kMaxRanges];
+  int start[kMaxRanges];
+  int stop[kMaxRanges];
+};
+
 namespace mma {
 
 constexpr int kWarps = 8;
@@ -72,6 +81,7 @@ struct Layout {
 };
 
 __host__ __device__ inline int round8(int k) { return (k + 7) & ~7; }
+__host__ __device__ inline long long round4(long long n) { return (n + 3) & ~3LL; }
 
 // An activation tile of k columns (the operand A of a layer, or its output).
 __host__ __device__ inline Layout act_layout(int k) {
@@ -176,6 +186,32 @@ __device__ inline void copy_async(float* dst, const float* src, int n) {
   } else {
     for (int i = threadIdx.x; i < n; i += blockDim.x) cp_async4(dst + i, src + i);
   }
+}
+
+// dst[gi * n + j] = src[(g0 + gi) * stride + j] for gi < graphs, j < n: rows
+// of a per-graph field, asynchronously, 4 bytes a thread.
+__device__ inline void copy_rows(int* dst, const int* src, int g0, int graphs, int n, long long stride) {
+  if (stride == n) {
+    for (int i = threadIdx.x; i < graphs * n; i += blockDim.x) cp_async4(dst + i, src + (long long)g0 * n + i);
+  } else {
+    for (int i = threadIdx.x; i < graphs * n; i += blockDim.x)
+      cp_async4(dst + i, src + (long long)(g0 + i / n) * stride + i % n);
+  }
+}
+
+// Make this thread's earlier writes (shared and global) visible to the
+// asynchronous proxy that bulk copies run in.
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async;\n" ::: "memory"); }
+
+// dst[0 .. bytes) = src[0 .. bytes) from shared to global memory as one bulk
+// copy by the calling thread (bytes a multiple of 16, both 16-byte aligned);
+// returns once the copy has read src, and the write completes on its own.
+__device__ inline void bulk_store(float* dst, const float* src, unsigned bytes) {
+  const unsigned from = static_cast<unsigned>(__cvta_generic_to_shared(src));
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst), "r"(from), "r"(bytes)
+               : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
 // A rows x n row-major matrix at src into the weight layout for n columns.

@@ -72,32 +72,19 @@ struct StepSmem {
 // shared memory of an fp32 one.
 constexpr int kZRows = 32;
 
-__host__ __device__ inline long long round4(long long n) { return (n + 3) & ~3LL; }
-
 __host__ __device__ inline StepSmem step_smem(mma::Dims d, int G, int N, int H, bool a_shared,
                                               bool d_shared, bool m_shared) {
   StepSmem s;
   s.tile = mma::weight_floats(d);
   s.h = s.tile + mma::split_tile_floats(d, kZRows);
   s.a = s.h + (long long)G * N * H;
-  s.depth = s.a + round4((a_shared ? 1LL : G) * N * N);
-  s.mask = s.depth + round4((d_shared ? 1LL : G) * N);
-  s.list = s.mask + round4((m_shared ? 1LL : G) * N);
-  s.keep = s.list + round4((long long)G * N);
-  s.count = s.keep + round4(((long long)G * N + 3) / 4);
-  s.total = s.count + round4(kMaxRanges);
+  s.depth = s.a + mma::round4((a_shared ? 1LL : G) * N * N);
+  s.mask = s.depth + mma::round4((d_shared ? 1LL : G) * N);
+  s.list = s.mask + mma::round4((m_shared ? 1LL : G) * N);
+  s.keep = s.list + mma::round4((long long)G * N);
+  s.count = s.keep + mma::round4(((long long)G * N + 3) / 4);
+  s.total = s.count + mma::round4(kMaxRanges);
   return s;
-}
-
-// dst[gi * n + j] = src[(g0 + gi) * stride + j] for gi < graphs, j < n: rows
-// of a per-graph field, asynchronously, 4 bytes a thread.
-__device__ inline void copy_rows(int* dst, const int* src, int g0, int graphs, int n, long long stride) {
-  if (stride == n) {
-    for (int i = threadIdx.x; i < graphs * n; i += blockDim.x) mma::cp_async4(dst + i, src + (long long)g0 * n + i);
-  } else {
-    for (int i = threadIdx.x; i < graphs * n; i += blockDim.x)
-      mma::cp_async4(dst + i, src + (long long)(g0 + i / n) * stride + i % n);
-  }
 }
 
 // The first slot range after r with selected rows (ranges.n if none).
@@ -130,8 +117,8 @@ __global__ void __launch_bounds__(mma::kThreads, 1)
   const long long first = ((long long)e * a.B + g0) * N * H;  // the block's first element of h
 
   // 1. depth and mask, then h and a_flow, asynchronously
-  copy_rows(ds, a.depth, g0, a.d_bs ? ng : 1, N, a.d_bs);
-  copy_rows(reinterpret_cast<int*>(ms), reinterpret_cast<const int*>(a.mask), g0, a.m_bs ? ng : 1, N, a.m_bs);
+  mma::copy_rows(ds, a.depth, g0, a.d_bs ? ng : 1, N, a.d_bs);
+  mma::copy_rows(reinterpret_cast<int*>(ms), reinterpret_cast<const int*>(a.mask), g0, a.m_bs ? ng : 1, N, a.m_bs);
   if (tid < kMaxRanges) count[tid] = 0;
   mma::cp_async_commit();
   mma::copy_async(hs, a.h + first, n_rows * H);

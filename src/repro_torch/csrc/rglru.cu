@@ -5,74 +5,118 @@
 // Replaces the TPU kernel repro/kernels/rglru/kernel.py:linear_scan_pallas.
 // That kernel tiled T into chunks that ran in order on one core and carried
 // the state in a VMEM scratch buffer from one grid step to the next.  Blocks
-// on this card run in no order, so nothing may carry between them: here one
-// thread owns one (b, d) channel and walks all of T itself, with the state in
-// a register.  Neighbouring threads own neighbouring channels, so each step's
-// loads and stores are coalesced along D.  The ragged tail of D is masked;
-// B and T need no tiling rule.
+// on this card run in no order, so nothing carries between them: a block owns
+// 32 consecutive channels of one batch row, one per lane, and walks all of T
+// itself.
 //
 // What bounds it: bytes.  Every element of a and x is read once and every
-// element of out written once; the work is 2 flops per 12 bytes.  The chain
-// through h is serial, so each thread loads the next kScanAhead steps of a
-// and x into registers before it runs the current steps' dependent updates,
-// keeping loads in flight while it computes.  With B * D threads in all
-// (10,240 at the prefill shape (4, 2048, 2560)), this simple design cannot
-// keep enough bytes in flight to reach the memory rate; a scan split across
-// T (more threads, a second pass for the carries) is a later kernel's work.
+// element of out written once; the work is 2 flops per 12 bytes.  One thread
+// per channel walking T (10,240 threads at the prefill shape (4, 2048, 2560))
+// cannot keep enough loads in flight to reach the memory rate, so the scan is
+// split across T inside the block: its warps take consecutive chunks of
+// kChunk steps (a round of kScanWarps * kChunk steps), each loads its chunk into
+// registers with coalesced 128-byte rows, and computes the chunk's composed
+// map h -> A h + S (A the product of its a, S its scan from 0).  The warps
+// fold those maps onto the block's carry in a fixed order through shared
+// memory, so each warp has its carry-in; it re-runs its chunk from there and
+// writes it.  The fold of all the round's maps is the next round's carry.  The
+// next round's loads are issued before the current round's work, so they are
+// in flight meanwhile.  Four warps of 16 steps let every block of the
+// prefill shape (320) be resident at once; eight warps fit two blocks an SM
+// and left a second wave, and were slower.  A short scan (a decode step has
+// one step) runs the same round: the chunks past T are identity maps, and up
+// to 16 steps warp 0 re-runs its chunk from h0 in the plain loop's order.
+// The ragged tail of D and of T is masked.
 //
-// Each step rounds the product and the sum separately (no FMA contraction),
-// as the plain PyTorch loop (kernels/rglru/ref.py) computes them, so the two
-// agree bitwise and two launches give bitwise-equal answers.
+// Each step rounds the product and the sum separately (no FMA contraction), as
+// the plain PyTorch loop (kernels/rglru/ref.py) does; but past 16 steps the
+// carries are composed maps, not the sequential recurrence, so the result
+// agrees with the plain loop to fp32 rounding (within 1e-5), not bitwise.  The
+// order of every operation is fixed, so two launches give bitwise-equal
+// answers.
 #include <cuda_runtime.h>
 
 namespace repro_torch {
 
-constexpr int kScanThreads = 128;
-constexpr int kScanAhead = 16;
+constexpr int kScanWarps = 4;  // warps of a block, each a chunk of a round
+constexpr int kChunk = 16;     // steps a warp takes per round
 
-// One thread per (b, d): grid (ceil(D / kScanThreads), B).  a, x and h0 are
-// read through their strides (in elements); out is contiguous (B, T, D).
-__global__ void __launch_bounds__(kScanThreads) linear_scan_kernel(
-    const float* __restrict__ a, long long a_sb, long long a_st, long long a_sd,
-    const float* __restrict__ x, long long x_sb, long long x_st, long long x_sd,
-    const float* __restrict__ h0, long long h_sb, long long h_sd, float* __restrict__ out, int T,
-    int D) {
-  const int d = blockIdx.x * kScanThreads + threadIdx.x;
-  if (d >= D) return;
-  const long long b = blockIdx.y;
-  const float* ap = a + b * a_sb + d * a_sd;
-  const float* xp = x + b * x_sb + d * x_sd;
-  float* op = out + b * (long long)T * D + d;
-  float h = h0[b * h_sb + d * h_sd];
+struct ScanArgs {
+  const float* a;
+  long long a_sb, a_st, a_sd;
+  const float* x;
+  long long x_sb, x_st, x_sd;
+  const float* h0;
+  long long h_sb, h_sd;
+  float* out;
+  int T, D;
+};
 
-  float a_next[kScanAhead], x_next[kScanAhead];
+// This lane's kChunk steps from t0 of a and x; steps past T (and dead lanes)
+// read as the identity step a = 1, x = 0.
+__device__ __forceinline__ void load_chunk(const ScanArgs& s, const float* ap, const float* xp, bool live, int t0,
+                                           float (&av)[kChunk], float (&xv)[kChunk]) {
 #pragma unroll
-  for (int k = 0; k < kScanAhead; ++k) {
-    a_next[k] = k < T ? ap[k * a_st] : 0.f;
-    x_next[k] = k < T ? xp[k * x_st] : 0.f;
+  for (int k = 0; k < kChunk; ++k) {
+    const bool ok = live && t0 + k < s.T;
+    av[k] = ok ? ap[(long long)(t0 + k) * s.a_st] : 1.f;
+    xv[k] = ok ? xp[(long long)(t0 + k) * s.x_st] : 0.f;
   }
-  for (int t0 = 0; t0 < T; t0 += kScanAhead) {
-    float a_cur[kScanAhead], x_cur[kScanAhead];
+}
+
+// One step of the recurrence, the product and the sum rounded separately.
+__device__ __forceinline__ float step(float a, float h, float x) { return __fadd_rn(__fmul_rn(a, h), x); }
+
+// Blocks of kScanWarps warps over 32 channels; grid (ceil(D / 32), B).  a, x
+// and h0 are read through their strides (in elements); out is contiguous
+// (B, T, D).
+__global__ void __launch_bounds__(32 * kScanWarps) linear_scan_kernel(ScanArgs s) {
+  __shared__ float2 maps[2][kScanWarps][32];  // (A, S) of each warp's chunk, by round parity
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int d = blockIdx.x * 32 + lane;
+  const bool live = d < s.D;
+  const long long b = blockIdx.y;
+  const float* ap = s.a + b * s.a_sb + (live ? d : 0) * s.a_sd;
+  const float* xp = s.x + b * s.x_sb + (live ? d : 0) * s.x_sd;
+  float* op = s.out + b * (long long)s.T * s.D + (live ? d : 0);
+  float carry = live ? s.h0[b * s.h_sb + d * s.h_sd] : 0.f;
+  constexpr int round_steps = kScanWarps * kChunk;
+
+  float av[kChunk], xv[kChunk];
+  load_chunk(s, ap, xp, live, warp * kChunk, av, xv);
+  for (int r0 = 0, parity = 0; r0 < s.T; r0 += round_steps, parity ^= 1) {
+    const int t0 = r0 + warp * kChunk;
+    float an[kChunk], xn[kChunk];  // the next round's chunk, in flight meanwhile
+    load_chunk(s, ap, xp, live, t0 + round_steps, an, xn);
+    // this chunk's map from zero
+    float A = 1.f, S = 0.f;
 #pragma unroll
-    for (int k = 0; k < kScanAhead; ++k) {
-      a_cur[k] = a_next[k];
-      x_cur[k] = x_next[k];
+    for (int k = 0; k < kChunk; ++k) {
+      S = step(av[k], S, xv[k]);
+      A = __fmul_rn(A, av[k]);
     }
-    const int t1 = t0 + kScanAhead;
-    if (t1 < T) {
-#pragma unroll
-      for (int k = 0; k < kScanAhead; ++k) {
-        const long long t = t1 + k;
-        a_next[k] = t < T ? ap[t * a_st] : 0.f;
-        x_next[k] = t < T ? xp[t * x_st] : 0.f;
-      }
+    maps[parity][warp][lane] = make_float2(A, S);
+    __syncthreads();
+    // carry-in: the maps of warps 0 .. warp - 1 applied to the block's carry
+    // in order; the same fold over every warp is the next round's carry
+    float c = carry, next = carry;
+    for (int j = 0; j < kScanWarps; ++j) {
+      if (j == warp) c = next;
+      const float2 m = maps[parity][j][lane];
+      next = step(m.x, next, m.y);
     }
+    float hh = c;
 #pragma unroll
-    for (int k = 0; k < kScanAhead; ++k) {
-      if (t0 + k < T) {
-        h = __fadd_rn(__fmul_rn(a_cur[k], h), x_cur[k]);
-        op[(long long)(t0 + k) * D] = h;
-      }
+    for (int k = 0; k < kChunk; ++k) {
+      if (t0 + k >= s.T) break;
+      hh = step(av[k], hh, xv[k]);
+      if (live) op[(long long)(t0 + k) * s.D] = hh;
+    }
+    carry = next;
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k) {
+      av[k] = an[k];
+      xv[k] = xn[k];
     }
   }
 }
@@ -93,8 +137,8 @@ extern "C" int linear_scan_launch(const float* a, long long a_sb, long long a_st
   if (err != cudaSuccess) return (int)err;
   if (B < 0 || T < 0 || D < 0 || B > 65535) return (int)cudaErrorInvalidValue;
   if (B == 0 || T == 0 || D == 0) return (int)cudaSuccess;
-  const dim3 grid((D + kScanThreads - 1) / kScanThreads, B);
-  linear_scan_kernel<<<grid, kScanThreads, 0, (cudaStream_t)stream>>>(
-      a, a_sb, a_st, a_sd, x, x_sb, x_st, x_sd, h0, h_sb, h_sd, out, T, D);
+  const dim3 grid((D + 31) / 32, B);
+  const ScanArgs s{a, a_sb, a_st, a_sd, x, x_sb, x_st, x_sd, h0, h_sb, h_sd, out, T, D};
+  linear_scan_kernel<<<grid, 32 * kScanWarps, 0, (cudaStream_t)stream>>>(s);
   return (int)cudaGetLastError();
 }

@@ -30,7 +30,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-MAX_RANGES = 12  # kMaxRanges in csrc/mlp_tile.cuh
+MAX_RANGES = 12  # kMaxRanges in csrc/mma_tile.cuh
 MAX_LEVELS = 8  # kMaxLevels in csrc/mp_sweep.cu
 
 

@@ -82,6 +82,48 @@ def test_linear_scan_empty_and_bad_operands():
         linear_scan(torch.rand(2, 3, 5), torch.rand(2, 4, 5), torch.zeros(2, 5))
 
 
+def _chunked_scan(a, x, h0, chunk=16):
+    """The CUDA kernel's order of operations (``csrc/rglru.cu``) in plain
+    torch: chunks of ``chunk`` steps; each chunk's map h -> A h + S from
+    zero, the maps folded onto the carry in order for each chunk's carry-in,
+    the chunk re-run from there; every product and sum rounded on its own.
+    (How the kernel's warps group the chunks into rounds changes nothing; up
+    to one chunk, T <= chunk, the re-run from h0 is the plain loop.)"""
+    B, T, D = a.shape
+    out, carry = torch.empty_like(a), h0.clone()
+    for t0 in range(0, T, chunk):
+        steps_ = range(t0, min(t0 + chunk, T))
+        A, S = torch.ones(B, D), torch.zeros(B, D)
+        for t in steps_:
+            S, A = a[:, t] * S + x[:, t], A * a[:, t]
+        h = carry
+        for t in steps_:
+            h = a[:, t] * h + x[:, t]
+            out[:, t] = h
+        carry = A * carry + S
+    return out
+
+
+@pytest.mark.parametrize("T", [2048, 1000])
+def test_chunked_scan_order_holds_the_kernel_tolerance(T):
+    """The kernel re-associates the recurrence (chunk maps folded into
+    carries), so it no longer matches the sequential loop bitwise; at the
+    prefill length and at a T that is no multiple of a round, with RG-LRU-like
+    inputs (a in (0, 1), half the channels within 1e-5 to 1e-1 of 1, x scaled
+    by sqrt(1 - a^2) as ``apply_rglru`` gates it), it stays within ``TOL``."""
+    rng = np.random.default_rng(T)
+    B, D = 2, 64
+    a = rng.uniform(0.0, 1.0, (B, T, D))
+    a[..., : D // 2] = 1.0 - 10.0 ** rng.uniform(-5.0, -1.0, (B, T, D // 2))
+    x = np.sqrt(1.0 - a**2) * rng.standard_normal((B, T, D))
+    a, x = _torch(a.astype(np.float32)), _torch(x.astype(np.float32))
+    h0 = _torch(rng.standard_normal((B, D)).astype(np.float32))
+    want = linear_scan(a, x, h0)
+    got = _chunked_scan(a, x, h0)
+    assert not torch.equal(got, want)
+    torch.testing.assert_close(got, want, **TOL)
+
+
 # -- blocks -------------------------------------------------------------------------
 
 
