@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving paths on one CUDA card and check them.
+"""Drive the PyTorch port's serving and training paths on one CUDA card and check them.
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -18,6 +18,15 @@ Each phase prints one JSON line:
            the card's per-request answers and the same estimator on the CPU;
            every path runs with the launch counters set to 0 just before it and
            read just after, and fails if one of its kernels did not launch
+  train    launch/train.py's main stage at full width (22,000 traces, 5 metrics x 3
+           members, hidden 64, batch 512, exact banding, use_pallas=True), cut to 2
+           epochs a metric: gradients through the kernels against the plain path
+           on one batch (every leaf nonzero), each kernel's autograd.Function
+           against autograd of its plain version (its backward timed), a step
+           split into forward / backward / optimizer beside the plain path's, a
+           profiled step, 20 steps with the kernels and with the plain path,
+           validation loss below its value at init for every metric, and the
+           exported bundle served on the card against the trained params
   lm       full-width RecurrentGemma-2B (26 layers, random bf16 weights from a
            seed) serving 4 requests: 2048-token prompts prefilled into the
            decode cache with serve_step, then 64 greedy decode steps; 18
@@ -31,10 +40,12 @@ a directory that holds this script and nothing else of the repository.
 """
 
 import dataclasses
+import itertools
 import json
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -54,11 +65,21 @@ LM_RTOL = 1e-4  # reduced LM in fp32, card against CPU (TF32 off)
 # bitwise, and the bf16 layers after it may round a value the other way; the
 # bound allows one bf16 rounding (2**-8 relative) of the largest logit.
 LM_SCAN_REL = 2.0**-8
+# The train phase runs the same first steps of an epoch with the kernels and
+# with the plain path from one start.  A step's loss first differs by the
+# kernels' forward error (at most 2.6e-6 on states of order one, about 1e-6 of
+# the loss); Adam then turns a gradient difference into a parameter difference
+# of at most 2 lr_t (lr_t <= 1.5e-3) on the few components whose gradient
+# changes sign, which moves the loss by a small fraction of those components'
+# share; 20 steps stay far inside 1e-3 relative, the bound (the loosest
+# allowed).
+TRAJ_REL = 1e-3
 # What each path is asked, and how often each kernel is timed.  Smaller values
 # (with DEVICE = "cpu" and the counters stubbed) give a quick dry run of the
 # script's control flow; the numbers it prints are then meaningless.
 SIZES = {"traces": 4096, "many_batch": 512, "drain_structures": 16, "drain_candidates": 256,
          "score_candidates": 1024, "placed_candidates": 256, "timing_reps": 20,
+         "train_traces": 22_000, "train_epochs": 2, "train_trajectory": 20,
          "lm_reduced": False, "lm_batch": 4, "lm_prompt": 2048, "lm_decode": 64}
 DEVICE = "cuda"
 
@@ -103,6 +124,7 @@ def main() -> int:
     from repro_torch.core.graph import (
         SLOT_RANGES,
         JointGraph,
+        batch_banding,
         batch_graphs,
         build_a_place_batch,
         build_graph,
@@ -116,8 +138,10 @@ def main() -> int:
         CLASSIFICATION_METRICS,
         REGRESSION_METRICS,
         CostModelConfig,
+        ensemble_loss,
         forward_ensemble,
         init_cost_model,
+        label_array,
     )
     from repro_torch.dsps import WorkloadGenerator
     from repro_torch.kernels import _build
@@ -132,8 +156,13 @@ def main() -> int:
     from repro_torch.kernels.seg_gather import ops as seg_ops
     from repro_torch.kernels.seg_gather.ref import gather_sum_ref, segment_sum_ref
     from repro_torch.placement.enumerate import sample_assignment_matrix
+    from repro_torch.launch import artifacts
+    from repro_torch.launch import train as launch_train
+    from repro_torch.serve.bundle import corpus_fingerprint
     from repro_torch.serve.estimator import CostEstimator, graphs_to_device
-    from repro_torch.serve.stacking import stack_metric_models
+    from repro_torch.serve.stacking import _ensemble_vote, stack_metric_models
+    from repro_torch.training import batching, loop, optim
+    from repro_torch.training.compression import ef_init
     from repro_torch.configs import get_config, reduced
     from repro_torch.models.params import count_params, materialize
     from repro_torch.models.steps import make_serve_step
@@ -618,7 +647,233 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
-    # -- 4. lm: RecurrentGemma-2B serving through make_serve_step -----------------
+    # -- 4. train: the port's launch/train.py on the 22,000-trace corpus -----------
+    torch.cuda.reset_peak_memory_stats()
+    (ROOT / "build").mkdir(exist_ok=True)
+    train_root = Path(tempfile.mkdtemp(prefix="train_smoke_", dir=ROOT / "build"))
+    artifacts.ROOT = str(train_root)  # a temporary artifact store: corpus, five ensembles, the bundle
+    launch_train.MAIN_CORPUS = SIZES["train_traces"]
+    epochs = SIZES["train_epochs"]
+    train = {"phase": "train", "model": {"hidden": H, "metrics": len(ALL_METRICS), "members": E_MEMBERS,
+                                         "use_pallas": True, "batch_size": 512, "lr": 1.5e-3, "banding": "exact"},
+             "corpus": {"traces": launch_train.MAIN_CORPUS, "seed": launch_train.CORPUS_SEED,
+                        "split_seed": launch_train.SPLIT_SEED},
+             "cuts": [f"{epochs} epochs a metric instead of 30"]}
+    t0 = time.perf_counter()
+    corpus = launch_train.main_corpus()
+    train["corpus_s"] = time.perf_counter() - t0
+    tcfg = CostModelConfig(metric="latency_p", gnn=gnn.GNNConfig(use_pallas=True), n_ensemble=E_MEMBERS)
+    pcfg = dataclasses.replace(tcfg, gnn=gnn.GNNConfig(use_pallas=False))
+    tr, va, _ = batching.split_dataset(batching.dataset_from_traces(corpus, "latency_p"), seed=launch_train.SPLIT_SEED)
+    tr_sorted, buckets = batching.bucket_dataset(tr, exact=True)
+    steps_per_epoch = batching.n_batches(buckets, 512)
+    tcfg_train = loop.TrainConfig(epochs=epochs, batch_size=512, lr=1.5e-3, exact_banding=True)
+    opt = loop.make_optimizer(tcfg_train, steps_per_epoch * epochs)
+    first = list(itertools.islice(batching.bucketed_batches(tr_sorted, buckets, 512, rng=np.random.default_rng(1),
+                                                            device=dev), SIZES["train_trajectory"]))
+    g1, y1, band1 = max(first, key=lambda b: len(b[2].levels))  # the deepest of them
+    params0 = nn.to_device(init_cost_model(torch.Generator().manual_seed(0), tcfg), dev)
+    train.update({"train_graphs": len(tr), "val_graphs": len(va), "buckets": len(buckets),
+                  "steps_per_epoch": steps_per_epoch,
+                  "step_batch": {"graphs": int(g1.op_x.shape[0]), "levels": len(band1.levels),
+                                 "rows": len(band1.rows) if band1.rows is not None else N}})
+
+    # gradient parity on the card: the kernels against the plain path (TF32 off)
+    (loss_k, grads_k), step_launches = counted(
+        "train_step", lambda: loop.loss_and_grads(params0, g1, y1, tcfg, band1), ("banked_mlp", "mp_sweep"),
+        ("mp_update", "gather_sum", "segment_sum", "linear_scan"))
+    if (step_launches["banked_mlp"], step_launches["mp_sweep"]) != (4, 1):
+        raise AssertionError(f"train step: {step_launches}; want 4 banked_mlp and 1 mp_sweep launches")
+    loss_p, grads_p = loop.loss_and_grads(params0, g1, y1, pcfg, band1)
+    worst, zero = 0.0, []
+    for (path, a), (_, b) in zip(nn.tree_leaves_with_paths(grads_k), nn.tree_leaves_with_paths(grads_p)):
+        if float(a.abs().max()) == 0.0:
+            zero.append("/".join(path))
+        limit = 1e-4 * b.abs() + 1e-5 * float(b.abs().max())
+        worst = max(worst, float(((a - b).abs() / limit.clamp(min=1e-30)).max()))
+    train["gradient_parity"] = {"loss": float(loss_k), "loss_plain": float(loss_p),
+                                "loss_abs_diff": abs(float(loss_k) - float(loss_p)), "tol": TOL,
+                                "leaves": len(nn.tree_leaves(grads_k)), "zero_gradient_leaves": zero,
+                                "worst_leaf_ratio": worst,
+                                "bound": "|kernel - plain| <= 1e-4 |plain| + 1e-5 max|plain leaf|"}
+    if zero or worst > 1.0 or not np.isclose(float(loss_k), float(loss_p), rtol=TOL, atol=TOL):
+        emit(train)
+        raise AssertionError(f"train: kernel and plain gradients disagree (worst {worst}, zero leaves {zero})")
+
+    # each kernel's autograd.Function against autograd of its plain version at
+    # the training shape; its backward (the plain VJP) timed
+    def grad_case(name):
+        r = torch.Generator().manual_seed(7)
+
+        def randn(*shape):
+            return torch.randn(shape, generator=r).to(dev).requires_grad_()
+
+        w = [t.detach().clone().requires_grad_() for layer in params0["op_upd"]["layers"] for t in (layer["w"], layer["b"])]
+
+        def lay(w1, b1, w2, b2):
+            return {"layers": [{"w": w1, "b": b1}, {"w": w2, "b": b2}]}
+
+        Bt = int(g1.op_x.shape[0])
+        if name == "banked_mlp":
+            return (lambda x, *w: bank_ops.banked_mlp_slotted(lay(*w), x, SLOT_RANGES),
+                    lambda x, *w: banked_mlp_slotted_ref(lay(*w), x, SLOT_RANGES), [randn(E_MEMBERS, Bt, N, 2 * H), *w])
+        if name == "mp_update":
+            d1, m1 = g1.op_depth, g1.op_mask
+            return (lambda h, a, *w: mp_ops.mp_update(lay(*w), h, a, d1, m1, 2, SLOT_RANGES),
+                    lambda h, a, *w: mp_update_ref(lay(*w), h, a, d1, m1, 2, SLOT_RANGES),
+                    [randn(E_MEMBERS, Bt, N, H), g1.a_flow.clone().requires_grad_(), *w])
+        if name == "mp_sweep":
+            keep1 = torch.tensor(band1.rows, device=dev)
+            a1 = g1.a_flow.index_select(1, keep1).index_select(2, keep1).contiguous()
+            d1 = g1.op_depth.index_select(1, keep1).contiguous()
+            m1 = g1.op_mask.index_select(1, keep1).contiguous()
+            lv = gnn._banded_plan(band1, band1.ranges).levels
+            return (lambda h, a, *w: sweep_ops.mp_sweep(lay(*w), h, a, d1, m1, lv),
+                    lambda h, a, *w: mp_sweep_ref(lay(*w), h, a, d1, m1, lv),
+                    [randn(E_MEMBERS, Bt, len(band1.rows), H), a1.requires_grad_(), *w])
+        if name == "gather_sum":
+            flow_in = g1.a_flow.transpose(-1, -2)
+            pi = torch.argsort(-flow_in, dim=-1, stable=True)[..., :2]
+            return (lambda h, wt: seg_ops.gather_sum(h, pi, wt), lambda h, wt: gather_sum_ref(h, pi, wt),
+                    [randn(E_MEMBERS, Bt, N, H), torch.gather(flow_in, -1, pi).requires_grad_()])
+        hosts = g1.a_place.argmax(dim=-1)
+        return (lambda x: seg_ops.segment_sum(x, hosts, W), lambda x: segment_sum_ref(x, hosts, W),
+                [randn(E_MEMBERS, Bt, N, H)])
+
+    backward = {}
+    for name in ("banked_mlp", "mp_update", "mp_sweep", "gather_sum", "segment_sum"):
+        kernel, plain, ins = grad_case(name)
+        out_k = kernel(*ins)
+        cot = torch.randn(out_k.shape, generator=torch.Generator().manual_seed(3)).to(dev)
+        gk = torch.autograd.grad(out_k, ins, cot, retain_graph=True)
+        out_p = plain(*ins)
+        gp = torch.autograd.grad(out_p, ins, cot, retain_graph=True)
+        bitwise = all(torch.equal(a, b) for a, b in zip(gk, gp))
+        close = all(torch.allclose(a, b, rtol=TOL, atol=TOL) for a, b in zip(gk, gp))
+        backward[name] = {
+            "inputs": [list(t.shape) for t in ins], "bitwise_equal": bitwise, "within_tol": close,
+            "max_abs_err": max(float((a - b).abs().max()) for a, b in zip(gk, gp)),
+            "ms": cuda_ms(lambda: torch.autograd.grad(out_k, ins, cot, retain_graph=True)),
+            "forward_ms": cuda_ms(lambda: kernel(*ins)),
+            "launches_per_step": {"banked_mlp": 4, "mp_sweep": 1}.get(name, 0)}
+        # the plain backward of gather_sum adds with atomics; every other one is deterministic
+        if not (close if name == "gather_sum" else bitwise):
+            emit(train)
+            raise AssertionError(f"train: {name}'s autograd.Function disagrees with autograd of its plain version")
+        del out_k, out_p, gk, gp, ins
+    train["kernel_backward"] = backward
+
+    # one step split into forward, backward and optimizer (host clock, synchronized
+    # between the parts), the kernels' path and the plain path
+    def step_split(cfg, reps=SIZES["timing_reps"]):
+        p, state = params0, opt.init(params0)
+        parts = []
+        for _ in range(reps + 3):
+            torch.cuda.synchronize()
+            t = [time.perf_counter()]
+            live = nn.tree_map(lambda q: q.detach().requires_grad_(), p)
+            loss = ensemble_loss(live, g1, y1, cfg, band1)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            flat = torch.autograd.grad(loss, [leaf for _, leaf in nn.tree_leaves_with_paths(live)])
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            it = iter(flat)
+            updates, state = opt.update(nn.tree_map(lambda _: next(it), p), state, p)
+            p = optim.apply_updates(p, updates)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            parts.append(np.diff(t) * 1e3)
+        fwd, bwd, upd = np.median(np.asarray(parts[3:]), axis=0)
+        return {"forward_ms": fwd, "backward_ms": bwd, "optimizer_ms": upd, "step_ms": fwd + bwd + upd,
+                "backward_share": bwd / (fwd + bwd + upd)}
+
+    def train_steps(cfg, batches):
+        p, state, ef = params0, opt.init(params0), ef_init(params0)
+        losses = []
+        for g, y, band in batches:
+            p, state, ef, loss = loop.train_step(p, state, ef, g, y, band, cfg, opt, tcfg_train)
+            losses.append(loss)
+        return [float(v) for v in losses]
+
+    split_k, split_p = step_split(tcfg), step_split(pcfg)
+    reps = [(g1, y1, band1)] * SIZES["timing_reps"]
+    _, step_ms = timed(lambda: train_steps(tcfg, reps))
+    _, plain_step_ms = timed(lambda: train_steps(pcfg, reps))
+    train["step"] = {"kernels": {**split_k, "unsplit_step_ms": step_ms / len(reps)},
+                     "plain": {**split_p, "unsplit_step_ms": plain_step_ms / len(reps)},
+                     "launches": step_launches,
+                     "profile": device_split(lambda: loop.train_step(params0, opt.init(params0), ef_init(params0),
+                                                                     g1, y1, band1, tcfg, opt, tcfg_train))}
+
+    # the same first steps of an epoch with the kernels and with the plain path
+    traj_k, traj_p = train_steps(tcfg, first), train_steps(pcfg, first)
+    rel = [abs(a - b) / abs(b) for a, b in zip(traj_k, traj_p)]
+    train["trajectory"] = {"steps": len(first), "loss_kernels": traj_k, "loss_plain": traj_p, "max_rel_diff": max(rel),
+                           "bound_rel": TRAJ_REL}
+    if max(rel) > TRAJ_REL or not all(np.isfinite(traj_k)):
+        emit(train)
+        raise AssertionError(f"train: the kernel and plain trajectories part by {max(rel)} (bound {TRAJ_REL})")
+    del first, grads_k, grads_p
+
+    # validation loss at the start, per metric: the loop's own init (seed 0)
+    init_val = {}
+    _, val_index, _ = batching.split_indices(len(corpus), seed=launch_train.SPLIT_SEED)
+    val_g, _ = batching.batch_to_device(va.graphs, va.labels, dev)
+    val_band = batch_banding(va.graphs)
+    with torch.no_grad():
+        for m in ALL_METRICS:
+            y_val = torch.as_tensor(label_array(corpus, m)[val_index], device=dev)
+            cfg_m = dataclasses.replace(tcfg, metric=m)
+            init_val[m] = float(ensemble_loss(params0, val_g, y_val, cfg_m, val_band) / E_MEMBERS)
+
+    # the training run itself: launch/train.py's stage_main, counted
+    (results, train_ms), got = counted(
+        "train", lambda: timed(lambda: launch_train.stage_main(epochs, device=DEVICE)), ("banked_mlp", "mp_sweep"),
+        ("mp_update", "gather_sum", "segment_sum", "linear_scan"))
+    steps = sum(r.steps for r in results.values())
+    n_val = sum(len(r.history) for r in results.values())
+    train["run"] = {"seconds": train_ms / 1e3, "steps": steps, "validation_forwards": n_val, "launches": got,
+                    "per_metric": {m: {"steps": r.steps, "seconds": [h["seconds"] for h in r.history],
+                                       "train_loss": [h["train_loss"] for h in r.history],
+                                       "val_loss": [h["val_loss"] for h in r.history], "val_at_init": init_val[m]}
+                                   for m, r in results.items()}}
+    if (got["banked_mlp"], got["mp_sweep"]) != (4 * (steps + n_val), steps + n_val):
+        emit(train)
+        raise AssertionError(f"train: {got} over {steps} steps and {n_val} validation forwards; want 4 and 1 each")
+    worse = [m for m, r in results.items() if not r.best_val < init_val[m]]
+    if worse:
+        emit(train)
+        raise AssertionError(f"train: validation loss did not fall below its value at init for {worse}")
+
+    # export and serve: the bundle stage_main wrote, on the card, against the
+    # trained params' own forward
+    bundle = artifacts.load_bundle("main")
+    served = CostEstimator.from_bundle(bundle, corpus_fingerprint=corpus_fingerprint(corpus), strict_provenance=True,
+                                       device=DEVICE)
+    probe = batch_graphs([build_graph(t.query, t.cluster, t.placement) for t in corpus[:512]])
+    (answers, serve_ms), serve_launches = counted("train_serve", lambda: timed(lambda: served.estimate(probe)),
+                                                  ("banked_mlp", "mp_update"))
+    probe_d = graphs_to_device(probe, dev)
+    own, raw = {}, {}
+    with torch.no_grad():
+        for m, r in results.items():
+            cfg_m = bundle.config(m)
+            out = forward_ensemble(nn.to_device(r.params, dev), probe_d, cfg_m).cpu().numpy()
+            own[m], raw[m] = _ensemble_vote(out, cfg_m), out
+    check_answers("train export", answers, own, raw)
+    _, serve_warm_ms = timed(lambda: served.estimate(probe))
+    train["export"] = {"bundle_metrics": list(bundle.metrics), "estimate_graphs": len(corpus[:512]),
+                       "estimate_ms_first": serve_ms, "estimate_ms": serve_warm_ms, "launches": serve_launches,
+                       "meta": bundle.meta}
+    train["max_memory_allocated_bytes"] = int(torch.cuda.max_memory_allocated())
+    emit(train)
+    shutil.rmtree(train_root, ignore_errors=True)
+    del served, bundle, results, params0, g1, y1, val_g
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # -- 5. lm: RecurrentGemma-2B serving through make_serve_step -----------------
     costream = ("banked_mlp", "mp_update", "mp_sweep", "gather_sum", "segment_sum")
     n_rec = sum(k == "rec" for k in lm_cfg.pattern) * lm_cfg.n_groups + sum(k == "rec" for k in lm_cfg.suffix)
     prompt, n_dec = SIZES["lm_prompt"], SIZES["lm_decode"]
@@ -727,7 +982,7 @@ def main() -> int:
         raise AssertionError(f"lm: the reduced model on the card disagrees with the CPU "
                              f"(max abs err {max_diff(pairs)})")
 
-    # -- 5. kernel summary (the representative case: the most work on the path) -------
+    # -- 6. kernel summary (the representative case: the most work on the path) -------
     sources = {
         "banked_mlp": ("src/repro_torch/csrc/banked_mlp.cu", "src/repro/kernels/banked_mlp/kernel.py:53"),
         "mp_update": ("src/repro_torch/csrc/mp_update.cu", "src/repro/kernels/mp_update/kernel.py:64"),
@@ -746,10 +1001,13 @@ def main() -> int:
                         "max_abs_err": max(r["max_abs_err"] for r in mine),
                         "ms": rep["ms"], "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
                         "bound_by": rep["bound_by"], "library_ms": rep["library_ms"], "case": rep["case"],
-                        "shape": rep["shape"], **{k: rep[k] for k in ("per_level_ms", "per_level_max_abs_err") if k in rep}})
+                        "shape": rep["shape"], **{k: rep[k] for k in ("per_level_ms", "per_level_max_abs_err") if k in rep},
+                        # the backward: the plain version's VJP, at the training shape
+                        "backward_ms": backward[name]["ms"] if name in backward else None,
+                        "backward_launches_per_train_step": backward[name]["launches_per_step"] if name in backward else 0})
     emit({"kernels": summary})
 
-    # -- 6. the card, 7. status ---------------------------------------------------
+    # -- 7. the card, 8. status ---------------------------------------------------
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(card.splitlines()[0], flush=True)

@@ -1,18 +1,19 @@
 """COSTREAM cost models: per-metric GNN ensembles (paper SIV-A), in PyTorch.
 
-The port of ``repro/core/model.py``'s numeric core for inference: configs,
-init and the ensemble forward.  Five metrics, five separately trained
+The port of ``repro/core/model.py``'s numeric core: configs, init, the
+ensemble forward and the losses.  Five metrics, five separately trained
 models sharing the GNN architecture: regression (throughput, processing
-latency, e2e latency) with raw outputs in log1p space, classification
-(backpressure occurrence, query success) with logits.  Ensembles of E members
-share one forward with an explicit member axis.
+latency, e2e latency) trained with MSLE in log1p space, classification
+(backpressure occurrence, query success) trained with BCE on logits.
+Ensembles of E members share one forward with an explicit member axis.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from repro_torch import nn
@@ -63,3 +64,38 @@ def forward_ensemble(
             "ROADMAP.md queue 1, item 8."
         )
     return apply_gnn_stacked(params, g, cfg.gnn, banding)
+
+
+# -- losses ---------------------------------------------------------------------
+
+
+def msle_loss(raw: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Mean squared logarithmic error over the last axis; ``raw`` already
+    lives in log1p space."""
+    return torch.mean(torch.square(raw - torch.log1p(y)), dim=-1)
+
+
+def bce_loss(raw: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Binary cross-entropy with logits over the last axis, in the stable form
+    ``max(r, 0) - r * y + log1p(exp(-|r|))``."""
+    return torch.mean(torch.clamp(raw, min=0.0) - raw * y + torch.log1p(torch.exp(-torch.abs(raw))), dim=-1)
+
+
+def loss_fn(cfg: CostModelConfig) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
+    return msle_loss if cfg.task == "regression" else bce_loss
+
+
+def ensemble_loss(
+    params,
+    g: JointGraph,
+    y: torch.Tensor,
+    cfg: CostModelConfig,
+    banding: Optional[BatchBanding] = None,
+) -> torch.Tensor:
+    """Sum of member losses (members are independent; grads don't mix)."""
+    raw = forward_ensemble(params, g, cfg, banding)  # (E, B)
+    return torch.sum(loss_fn(cfg)(raw, y))
+
+
+def label_array(traces, metric: str) -> np.ndarray:
+    return np.asarray([t.labels.as_dict()[metric] for t in traces], dtype=np.float32)

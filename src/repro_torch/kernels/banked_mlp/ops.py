@@ -4,7 +4,9 @@ For tensors on the CPU it runs the plain version (``ref.py``); for tensors on
 a GPU it launches the CUDA kernel or raises.  It never falls back.  The
 member axis is explicit: ``x (E, B, N, F)`` with weights ``(E, T, ...)``, one
 launch for all E members; ``x`` may be expanded along the member axis
-(stride 0) when every member reads the same input.
+(stride 0) when every member reads the same input.  On a GPU the launch runs
+inside an ``autograd.Function`` whose backward is the VJP of the plain
+version (``kernels/common.py``), as the JAX package's ``custom_vjp`` is.
 """
 
 from __future__ import annotations
@@ -15,6 +17,11 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.banked_mlp.ref import banked_mlp_slotted_ref
+from repro_torch.kernels.common import check_untracked, oracle_vjp
+
+
+def _layers(w1, b1, w2, b2):
+    return {"layers": [{"w": w1, "b": b1}, {"w": w2, "b": b2}]}
 
 
 def _check_ranges(slot_ranges, n_rows: int, n_types: int) -> Tuple[Tuple[int, int, int], ...]:
@@ -72,6 +79,13 @@ def banked_mlp_slotted(params, x: torch.Tensor, slot_ranges: Sequence[Tuple[int,
             "banked_mlp_slotted: x must be contiguous, or one contiguous member "
             f"expanded along the member axis; strides {x.stride()}"
         )
+    return _BankedMLP.apply(x, w1, b1, w2, b2, ranges)
+
+
+def _launch(x, w1, b1, w2, b2, ranges) -> torch.Tensor:
+    check_untracked("banked_mlp_slotted", x, w1, b1, w2, b2)
+    E, B, N, F = x.shape
+    T, H1, H2 = w1.shape[1], w1.shape[3], w2.shape[3]
     y = torch.empty((E, B, N, H2), dtype=torch.float32, device=x.device)
     if y.numel() == 0:
         return y
@@ -84,6 +98,23 @@ def banked_mlp_slotted(params, x: torch.Tensor, slot_ranges: Sequence[Tuple[int,
     _build.check("banked_mlp", err)
     banked_mlp_slotted.launches += 1
     return y
+
+
+class _BankedMLP(torch.autograd.Function):
+    """The kernel launch, differentiable in ``x`` and the four weights."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, ranges):
+        ctx.save_for_backward(x, w1, b1, w2, b2)
+        ctx.ranges = ranges
+        return _launch(x, w1, b1, w2, b2, ranges)
+
+    @staticmethod
+    def backward(ctx, g):
+        def plain(x, w1, b1, w2, b2):
+            return banked_mlp_slotted_ref(_layers(w1, b1, w2, b2), x, ctx.ranges)
+
+        return (*oracle_vjp(ctx, plain, g, *ctx.saved_tensors), None)
 
 
 banked_mlp_slotted.launches = 0  # kernel launches (CUDA tensors only)

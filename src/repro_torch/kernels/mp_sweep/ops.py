@@ -7,7 +7,9 @@ one launch for all E members, and graph fields per graph (``a_flow
 (B, N, N)``, ``depth``/``mask`` ``(B, N)``) or shared by the batch
 (``(N, N)`` / ``(N,)``, read at batch stride 0).  The level table travels
 to the kernel by value (``_build.SweepLevels``), so one build serves every
-banding.
+banding.  On a GPU the launch runs inside an ``autograd.Function``
+differentiable in ``h``, ``a_flow`` and the weights, whose backward is the
+VJP of the plain sweep (``kernels/common.py``).
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.banked_mlp.ops import _layers
+from repro_torch.kernels.common import check_untracked, oracle_vjp
 from repro_torch.kernels.mp_sweep.ref import mp_sweep_ref
 from repro_torch.kernels.mp_update.ops import check_level, check_step_operands
 
@@ -42,6 +46,14 @@ def mp_sweep(params, h: torch.Tensor, a_flow: torch.Tensor, depth: torch.Tensor,
         raise ValueError(f"mp_sweep runs on the CPU or a CUDA device, not {h.device}")
     if not all(t.is_contiguous() for t in (h, w1, b1, w2, b2)):
         raise ValueError("mp_sweep: h and the weights must be contiguous")
+    return _MPSweep.apply(h, a_flow, w1, b1, w2, b2, depth, mask, (levels, (a_bs, d_bs, m_bs)))
+
+
+def _launch(h, a_flow, w1, b1, w2, b2, depth, mask, levels, strides) -> torch.Tensor:
+    check_untracked("mp_sweep", h, a_flow, w1, b1, w2, b2)
+    E, B, N, H = h.shape
+    T, H1 = w1.shape[1], w1.shape[3]
+    a_bs, d_bs, m_bs = strides
     table = _build.SweepLevels.of(levels)
     out = torch.empty_like(h)
     if out.numel() == 0:
@@ -55,6 +67,27 @@ def mp_sweep(params, h: torch.Tensor, a_flow: torch.Tensor, depth: torch.Tensor,
     _build.check("mp_sweep", err)
     mp_sweep.launches += 1
     return out
+
+
+class _MPSweep(torch.autograd.Function):
+    """The kernel launch, differentiable in ``h``, ``a_flow`` and the weights;
+    ``depth``, ``mask`` and the level table (``static``) get no gradient."""
+
+    @staticmethod
+    def forward(ctx, h, a_flow, w1, b1, w2, b2, depth, mask, static):
+        levels, strides = static
+        ctx.save_for_backward(h, a_flow, w1, b1, w2, b2, depth, mask)
+        ctx.levels = levels
+        return _launch(h, a_flow, w1, b1, w2, b2, depth, mask, levels, strides)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, a_flow, w1, b1, w2, b2, depth, mask = ctx.saved_tensors
+
+        def plain(h, a_flow, w1, b1, w2, b2):
+            return mp_sweep_ref(_layers(w1, b1, w2, b2), h, a_flow, depth, mask, ctx.levels)
+
+        return (*oracle_vjp(ctx, plain, g, h, a_flow, w1, b1, w2, b2), None, None, None)
 
 
 mp_sweep.launches = 0  # kernel launches (CUDA tensors only)

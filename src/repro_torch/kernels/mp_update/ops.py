@@ -5,7 +5,11 @@ a GPU it launches the CUDA kernel or raises.  It never falls back.  ``h`` has
 an explicit member axis, ``(E, B, N, H)``, with weights ``(E, T, ...)``: one
 launch for all E members.  The graph fields are per graph, ``a_flow
 (B, N, N)``, ``depth``/``mask`` ``(B, N)``, or shared by the whole batch,
-``(N, N)`` / ``(N,)``, which the kernel reads at batch stride 0.
+``(N, N)`` / ``(N,)``, which the kernel reads at batch stride 0.  On a GPU
+the launch runs inside an ``autograd.Function`` differentiable in ``h``,
+``a_flow`` and the weights, whose backward is the VJP of the plain version
+(``kernels/common.py``); a shared ``a_flow``'s gradient comes back summed
+over the batch, as JAX's transpose of the broadcast gives it.
 """
 
 from __future__ import annotations
@@ -15,6 +19,8 @@ from typing import Sequence, Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.banked_mlp.ops import _layers
+from repro_torch.kernels.common import check_untracked, oracle_vjp
 from repro_torch.kernels.mp_update.ref import mp_update_ref
 
 
@@ -116,15 +122,24 @@ def mp_update(
     )
     (s, e), ranges, p = check_level("mp_update", row_span, slot_ranges, parent_rows, N, T)
     d = int(d)
+    plain_span = None if row_span is None else (s, e)
+    plain_p = None if parent_rows is None else p
     if h.device.type == "cpu":
-        return mp_update_ref(
-            params, h, a_flow, depth, mask, d, ranges,
-            None if row_span is None else (s, e), None if parent_rows is None else p,
-        )
+        return mp_update_ref(params, h, a_flow, depth, mask, d, ranges, plain_span, plain_p)
     if h.device.type != "cuda":
         raise ValueError(f"mp_update runs on the CPU or a CUDA device, not {h.device}")
     if not all(t.is_contiguous() for t in (h, w1, b1, w2, b2)):
         raise ValueError("mp_update: h and the weights must be contiguous")
+    return _MPUpdate.apply(
+        h, a_flow, w1, b1, w2, b2, depth, mask, (d, ranges, plain_span, plain_p, (s, e, p), (a_bs, d_bs, m_bs))
+    )
+
+
+def _launch(h, a_flow, w1, b1, w2, b2, depth, mask, d, ranges, bounds, strides) -> torch.Tensor:
+    check_untracked("mp_update", h, a_flow, w1, b1, w2, b2)
+    E, B, N, H = h.shape
+    T, H1 = w1.shape[1], w1.shape[3]
+    (s, e, p), (a_bs, d_bs, m_bs) = bounds, strides
     out = torch.empty_like(h)
     if out.numel() == 0:
         return out
@@ -138,6 +153,28 @@ def mp_update(
     _build.check("mp_update", err)
     mp_update.launches += 1
     return out
+
+
+class _MPUpdate(torch.autograd.Function):
+    """The kernel launch, differentiable in ``h``, ``a_flow`` and the weights;
+    ``depth``, ``mask`` and the level (``static``) get no gradient."""
+
+    @staticmethod
+    def forward(ctx, h, a_flow, w1, b1, w2, b2, depth, mask, static):
+        d, ranges, _, _, bounds, strides = static
+        ctx.save_for_backward(h, a_flow, w1, b1, w2, b2, depth, mask)
+        ctx.static = static
+        return _launch(h, a_flow, w1, b1, w2, b2, depth, mask, d, ranges, bounds, strides)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, a_flow, w1, b1, w2, b2, depth, mask = ctx.saved_tensors
+        d, ranges, span, p, _, _ = ctx.static
+
+        def plain(h, a_flow, w1, b1, w2, b2):
+            return mp_update_ref(_layers(w1, b1, w2, b2), h, a_flow, depth, mask, d, ranges, span, p)
+
+        return (*oracle_vjp(ctx, plain, g, h, a_flow, w1, b1, w2, b2), None, None, None)
 
 
 mp_update.launches = 0  # kernel launches (CUDA tensors only)

@@ -6,7 +6,9 @@ kernel reads ``a``, ``b`` and ``h0`` through their strides, so a
 non-contiguous input (``h0`` as a slice of a stacked cache, a step slice of
 a wider tensor) needs no copy; the output is a new contiguous tensor.  There
 is no backward yet: the JAX package's backward is its oracle's VJP, and the
-port's ``autograd.Function`` comes with LM training.
+port's ``autograd.Function`` comes with LM training (ROADMAP.md queue 1,
+item 10); until then a launch on an input that requires grad raises rather
+than return a result autograd cannot see.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.common import check_untracked
 from repro_torch.kernels.rglru.ref import linear_scan_ref
 
 
@@ -35,6 +38,7 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> torch.Ten
         return linear_scan_ref(a, b, h0)
     if a.device.type != "cuda":
         raise ValueError(f"linear_scan runs on the CPU or a CUDA device, not {a.device}")
+    check_untracked("linear_scan", a, b, h0, why=" (its backward comes with LM training: ROADMAP.md queue 1, item 10)")
     out = torch.empty((B, T, D), dtype=torch.float32, device=a.device)
     if out.numel() == 0:
         return out

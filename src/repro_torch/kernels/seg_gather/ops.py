@@ -7,7 +7,11 @@ members; the index tables and weights are per graph, ``(B, ...)``, shared by
 every member.  Index operands are int64 (what ``argsort`` / ``argmax``
 return) and are read as they are, never cast per call.  The kernels read
 ``idx`` / ``w`` / ``seg`` through their strides, so a column slice of a
-wider table, or the layout a GPU sort returns, needs no copy.
+wider table, or the layout a GPU sort returns, needs no copy.  On a GPU
+each launch runs inside an ``autograd.Function`` whose backward is the VJP
+of the plain version (``kernels/common.py``): ``gather_sum`` is
+differentiable in ``h`` and ``w``, ``segment_sum`` in ``x``; the index
+tables get no gradient.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.common import check_untracked, oracle_vjp
 from repro_torch.kernels.seg_gather.ref import gather_sum_ref, segment_sum_ref
 
 
@@ -57,6 +62,13 @@ def gather_sum(h: torch.Tensor, idx: torch.Tensor, w: torch.Tensor) -> torch.Ten
         raise ValueError(f"gather_sum runs on the CPU or a CUDA device, not {h.device}")
     if not h.is_contiguous():
         raise ValueError(f"gather_sum: h must be contiguous; strides {h.stride()}")
+    return _GatherSum.apply(h, w, idx)
+
+
+def _launch_gather(h, w, idx) -> torch.Tensor:
+    check_untracked("gather_sum", h, w)
+    E, B, N, H = h.shape
+    R, P = idx.shape[1], idx.shape[2]
     out = torch.empty((E, B, R, H), dtype=torch.float32, device=h.device)
     if out.numel() == 0:
         return out
@@ -68,6 +80,18 @@ def gather_sum(h: torch.Tensor, idx: torch.Tensor, w: torch.Tensor) -> torch.Ten
     _build.check("gather_sum", err)
     gather_sum.launches += 1
     return out
+
+
+class _GatherSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h, w, idx):
+        ctx.save_for_backward(h, w, idx)
+        return _launch_gather(h, w, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w, idx = ctx.saved_tensors
+        return (*oracle_vjp(ctx, lambda h, w: gather_sum_ref(h, idx, w), g, h, w), None)
 
 
 def segment_sum(x: torch.Tensor, seg: torch.Tensor, n_seg: int) -> torch.Tensor:
@@ -95,6 +119,12 @@ def segment_sum(x: torch.Tensor, seg: torch.Tensor, n_seg: int) -> torch.Tensor:
         raise ValueError(f"segment_sum: x must be contiguous; strides {x.stride()}")
     if N > 1 and seg.stride(1) != 1:
         raise ValueError(f"segment_sum: seg's rows must be contiguous; strides {seg.stride()}")
+    return _SegmentSum.apply(x, seg, n_seg)
+
+
+def _launch_segment(x, seg, n_seg: int) -> torch.Tensor:
+    check_untracked("segment_sum", x)
+    E, B, N, H = x.shape
     out = torch.empty((E, B, n_seg, H), dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out
@@ -106,6 +136,19 @@ def segment_sum(x: torch.Tensor, seg: torch.Tensor, n_seg: int) -> torch.Tensor:
     _build.check("segment_sum", err)
     segment_sum.launches += 1
     return out
+
+
+class _SegmentSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, seg, n_seg):
+        ctx.save_for_backward(x, seg)
+        ctx.n_seg = n_seg
+        return _launch_segment(x, seg, n_seg)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, seg = ctx.saved_tensors
+        return (*oracle_vjp(ctx, lambda x: segment_sum_ref(x, seg, ctx.n_seg), g, x), None, None)
 
 
 gather_sum.launches = 0  # kernel launches (CUDA tensors only)

@@ -45,10 +45,17 @@ def resolve_device(device, who: str) -> torch.device:
 # -- trees ----------------------------------------------------------------------
 
 
+def _is_namedtuple(tree) -> bool:
+    return isinstance(tree, tuple) and hasattr(tree, "_fields")
+
+
 def tree_map(fn, tree, *rest):
-    """Map ``fn`` over the leaves of nested dicts/lists/tuples (same structure)."""
+    """Map ``fn`` over the leaves of nested dicts/lists/tuples (same structure);
+    a NamedTuple (an optimizer state) stays one."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
+    if _is_namedtuple(tree):
+        return type(tree)(*(tree_map(fn, *items) for items in zip(tree, *rest)))
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, *items) for items in zip(tree, *rest))
     return fn(tree, *rest)
@@ -56,9 +63,12 @@ def tree_map(fn, tree, *rest):
 
 def tree_map_with_path(fn, tree, path: Tuple[str, ...] = ()):
     """``tree_map`` whose ``fn(path, leaf)`` also gets the leaf's key path
-    (the tuple of dict keys / list indices, as strings)."""
+    (the tuple of dict keys, NamedTuple field names and list indices, as
+    strings: the JAX package's ``/``-joined checkpoint keys)."""
     if isinstance(tree, dict):
         return {k: tree_map_with_path(fn, v, path + (str(k),)) for k, v in tree.items()}
+    if _is_namedtuple(tree):
+        return type(tree)(*(tree_map_with_path(fn, v, path + (k,)) for k, v in zip(tree._fields, tree)))
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map_with_path(fn, v, path + (str(i),)) for i, v in enumerate(tree))
     return fn(path, tree)
@@ -69,6 +79,27 @@ def tree_leaves_with_paths(tree):
     out = []
     tree_map_with_path(lambda p, leaf: out.append((p, leaf)), tree)
     return out
+
+
+def tree_map_n(fn, n: int, tree, *rest):
+    """``n`` trees shaped like ``tree`` from ``fn``'s per-leaf ``n``-tuples."""
+    results = []
+    tree_map(lambda *leaves: results.append(fn(*leaves)), tree, *rest)
+    trees = []
+    for i in range(n):
+        it = iter([r[i] for r in results])
+        trees.append(tree_map(lambda _: next(it), tree))
+    return trees
+
+
+def tree_leaves(tree):
+    """The leaves in the JAX package's flatten order (dict keys sorted), so a
+    sum over them adds in the same order as ``jax.tree_util.tree_leaves``."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for item in tree for leaf in tree_leaves(item)]
+    return [tree]
 
 
 def params_from_numpy(tree, device="cpu") -> Params:

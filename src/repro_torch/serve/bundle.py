@@ -1,7 +1,8 @@
-"""Reading the versioned on-disk bundle of trained COSTREAM cost models.
+"""The versioned on-disk bundle of trained COSTREAM cost models.
 
-The port of the read side of ``repro/serve/bundle.py``: it loads, unchanged,
-a bundle that the JAX package wrote,
+The port of ``repro/serve/bundle.py``, in the same format both ways: it
+loads, unchanged, a bundle that the JAX package wrote, and writes one the
+JAX package loads,
 
     <dir>/step_0000000000/arrays.npz     every metric's stacked ensemble params
     <dir>/step_0000000000/manifest.json  schema + layout versions, configs, meta
@@ -12,12 +13,16 @@ with npz keys ``<metric>/<path>``, the ``/``-joined key path of each leaf
 contracts, checked on ``load``: ``schema_version`` (the bundle format) and
 ``layout`` (the slot layout the row-position-dependent weights were trained
 against); a mismatch raises ``BundleVersionError``.  Params load as CPU
-tensors; ``CostEstimator`` moves them to its device.  Writing bundles comes
-with the training port (ROADMAP.md queue 1, item 5).
+tensors; ``CostEstimator`` moves them to its device.  Bundles are written
+with the atomic checkpoint writer (``training/checkpoint.py``);
+``bundle_from_checkpoint`` exports the params of a ``train_cost_model``
+checkpoint, and ``merge_bundles`` joins per-metric bundles.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import hashlib
 import json
 import os
 from collections.abc import Mapping
@@ -31,9 +36,9 @@ from repro_torch import nn
 from repro_torch.core.gnn import GNNConfig
 from repro_torch.core.graph import MAX_DEPTH, MAX_HW, MAX_OPS, SLOT_RANGES
 from repro_torch.core.model import CostModelConfig, init_cost_model
+from repro_torch.training.checkpoint import SEP, latest_step, save_checkpoint
 
 BUNDLE_SCHEMA_VERSION = 1
-SEP = "/"
 
 
 def layout_descriptor() -> Dict:
@@ -55,20 +60,13 @@ class BundleIntegrityError(RuntimeError):
     missing or mis-shaped params leaves); raised by ``load(verify=True)``."""
 
 
-def latest_step(directory: str) -> Optional[int]:
-    """The step the ``latest`` pointer names, or the newest complete one."""
-    ptr = os.path.join(directory, "latest")
-    if not os.path.exists(ptr):
-        return None
-    with open(ptr) as f:
-        name = f.read().strip()
-    if not os.path.isdir(os.path.join(directory, name)):
-        # pointer ahead of a crashed write: fall back to newest complete dir
-        steps = sorted(d for d in os.listdir(directory) if d.startswith("step_"))
-        if not steps:
-            return None
-        name = steps[-1]
-    return int(name.split("_")[1])
+def _config_to_manifest(cfg: CostModelConfig) -> Dict:
+    return {
+        "metric": cfg.metric,
+        "n_ensemble": cfg.n_ensemble,
+        "traditional_mp": cfg.traditional_mp,
+        "gnn": dataclasses.asdict(cfg.gnn),
+    }
 
 
 def _config_from_manifest(spec: Dict) -> CostModelConfig:
@@ -100,6 +98,19 @@ class CostModelBundle:
 
     def params(self, metric: str):
         return self.models[metric][0]
+
+    def save(self, directory: str) -> str:
+        """Atomically persist the bundle; returns the written step directory."""
+        if not self.models:
+            raise ValueError("refusing to save an empty bundle")
+        state = {m: params for m, (params, _) in self.models.items()}
+        manifest = {
+            "schema_version": BUNDLE_SCHEMA_VERSION,
+            "layout": layout_descriptor(),
+            "configs": {m: _config_to_manifest(cfg) for m, (_, cfg) in self.models.items()},
+            "meta": self.meta,
+        }
+        return save_checkpoint(directory, 0, state, extra=manifest, keep=1)
 
     @classmethod
     def load(cls, directory: str, lazy: bool = True, verify: bool = False) -> "CostModelBundle":
@@ -206,3 +217,65 @@ class LazyModels(Mapping):
 
     def __len__(self) -> int:
         return len(self._cfgs)
+
+
+def corpus_fingerprint(traces) -> str:
+    """Stable digest of a training corpus (size + every trace's labels), the
+    JAX package's, so a bundle trained by either package names its corpus
+    the same way.  ``CostEstimator.from_bundle`` warns on a mismatch."""
+    h = hashlib.sha256(str(len(traces)).encode())
+    for t in traces:
+        for k, v in sorted(t.labels.as_dict().items()):
+            h.update(k.encode())
+            h.update(np.float64(v).tobytes())
+    return h.hexdigest()[:16]
+
+
+def bundle_from_checkpoint(ckpt_dir: str, cfg: CostModelConfig, meta: Optional[Dict] = None) -> CostModelBundle:
+    """Export a ``train_cost_model`` checkpoint as a single-metric bundle.
+
+    Training checkpoints persist the full step state ``(params, opt_state,
+    ef)``; only the params (the ``0/``-prefixed leaves of the newest step)
+    belong in a serving bundle.  Combine the bundles of several metrics with
+    ``merge_bundles`` before serving.
+    """
+    step = latest_step(ckpt_dir)
+    if step is None:
+        raise FileNotFoundError(f"no training checkpoint under {ckpt_dir}")
+    step_dir = os.path.join(ckpt_dir, f"step_{step:010d}")
+    try:
+        params = _params_from_npz(os.path.join(step_dir, "arrays.npz"), "0", cfg, f"checkpoint at {ckpt_dir}")
+    except KeyError as e:
+        raise KeyError(
+            f"{e.args[0]}; was it written by train_cost_model (state = (params, opt_state, ef))?"
+        ) from None
+    return CostModelBundle(
+        models={cfg.metric: (params, cfg)},
+        meta={"exported_from": os.path.abspath(ckpt_dir), "step": int(step), **(meta or {})},
+    )
+
+
+def merge_bundles(*bundles: CostModelBundle) -> CostModelBundle:
+    """Union of several bundles' models (later bundles win on metric clash).
+
+    Meta keys agreeing across bundles merge flat; keys carrying *different*
+    values are namespaced per source bundle as ``"<metrics>/<key>"``, so no
+    metric's provenance is silently overwritten by another's.
+    """
+    models: Dict[str, Tuple[object, CostModelConfig]] = {}
+    for b in bundles:
+        models.update(b.models)
+    first: Dict = {}
+    conflicts = set()
+    for b in bundles:
+        for k, v in b.meta.items():
+            if k in first and first[k] != v:
+                conflicts.add(k)
+            first.setdefault(k, v)
+    meta = {k: v for k, v in first.items() if k not in conflicts}
+    for b in bundles:
+        ns = ",".join(b.metrics)
+        for k, v in b.meta.items():
+            if k in conflicts:
+                meta[f"{ns}/{k}"] = v
+    return CostModelBundle(models=models, meta=meta)

@@ -5,7 +5,10 @@ imports neither JAX nor the JAX package, so it runs on a machine that has
 only PyTorch.  Kernels are held against their plain PyTorch versions at the
 main path's shapes (15 stacked members, hidden 64; the RG-LRU scan at
 RecurrentGemma-2B's prefill and decode shapes) at ``rtol=atol=1e-5``; the
-estimator and the reduced LM on the card against the same on the CPU.
+estimator and the reduced LM on the card against the same on the CPU.  Each
+kernel's ``autograd.Function`` is held against autograd of the plain version
+at the training shape (3 members, a batch of 512, hidden 64), and a cost
+model under ``use_pallas=True`` against the plain path.
 """
 
 import dataclasses
@@ -20,6 +23,7 @@ from repro_torch.core import gnn
 from repro_torch.core.gnn import GNNConfig
 from repro_torch.core.graph import SLOT_RANGES, batch_graphs, build_graph, exact_banding
 from repro_torch.core.model import ALL_METRICS, REGRESSION_METRICS, CostModelConfig, init_cost_model
+from repro_torch.training import batching, loop
 from repro_torch.dsps import WorkloadGenerator
 from repro_torch.kernels.banked_mlp import ops as bank_ops
 from repro_torch.kernels.banked_mlp.ref import banked_mlp_slotted_ref
@@ -483,3 +487,108 @@ def test_reduced_lm_on_card_matches_cpu(cuda):
     before = scan_ops.linear_scan.launches
     plain(gpu_p, caches[1], toks, pos)
     assert scan_ops.linear_scan.launches == before
+
+
+# -- gradients: each kernel's autograd.Function at the training shape --------------
+
+
+def _grad_case(name, device):
+    """``(kernel fn, plain fn, inputs that require grad)`` at the training
+    shape: 3 members, the 512 graphs of a corpus batch, hidden 64."""
+    gen = torch.Generator().manual_seed(31)
+    E, B, H = 3, 512, 64
+    traces = WorkloadGenerator(seed=5).corpus(B)
+    g = batch_graphs([build_graph(t.query, t.cluster, t.placement) for t in traces])
+    a_flow, depth, mask = (torch.from_numpy(np.ascontiguousarray(x)).to(device) for x in (g.a_flow, g.op_depth, g.op_mask))
+    bank = _bank(gen, E, 5, 2 * H, H, device, glorot=True)
+    weights = [t.requires_grad_() for layer in bank["layers"] for t in (layer["w"], layer["b"])]
+
+    def layers(w1, b1, w2, b2):
+        return {"layers": [{"w": w1, "b": b1}, {"w": w2, "b": b2}]}
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen).to(device).requires_grad_()
+
+    if name == "banked_mlp":
+        return (lambda x, *w: bank_ops.banked_mlp_slotted(layers(*w), x, SLOT_RANGES),
+                lambda x, *w: banked_mlp_slotted_ref(layers(*w), x, SLOT_RANGES), [randn(E, B, 12, 2 * H), *weights])
+    if name in ("mp_update", "mp_update_shared"):
+        a, d, m = (a_flow, depth, mask) if name == "mp_update" else (a_flow[7], depth[7], mask[7])
+        return (lambda h, a, *w: mp_ops.mp_update(layers(*w), h, a, d, m, 2, SLOT_RANGES),
+                lambda h, a, *w: mp_update_ref(layers(*w), h, a, d, m, 2, SLOT_RANGES),
+                [randn(E, B, 12, H), a.clone().requires_grad_(), *weights])
+    if name == "mp_sweep":
+        a, d, m, levels = _corpus_sweep_inputs(B, device)
+        return (lambda h, a, *w: sweep_ops.mp_sweep(layers(*w), h, a, d, m, levels),
+                lambda h, a, *w: mp_sweep_ref(layers(*w), h, a, d, m, levels),
+                [randn(E, B, a.shape[-1], H), a.clone().requires_grad_(), *weights])
+    if name == "gather_sum":  # the merged engine's parent table: the two parents of each row
+        flow_in = a_flow.transpose(-1, -2)
+        idx = torch.argsort(-flow_in, dim=-1, stable=True)[..., :2]
+        w = torch.gather(flow_in, -1, idx).clone().requires_grad_()
+        return (lambda h, w: seg_ops.gather_sum(h, idx, w), lambda h, w: gather_sum_ref(h, idx, w), [randn(E, B, 12, H), w])
+    host = torch.from_numpy(g.a_place).to(device).argmax(dim=-1)  # each operator's host
+    return (lambda x: seg_ops.segment_sum(x, host, 8), lambda x: segment_sum_ref(x, host, 8), [randn(E, B, 12, H)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["banked_mlp", "mp_update", "mp_update_shared", "mp_sweep", "gather_sum", "segment_sum"])
+def test_kernel_autograd_matches_plain_autograd(cuda, name):
+    """The kernel's ``autograd.Function`` gradients against autograd of the
+    plain version at the same inputs and cotangent: bitwise equal (the
+    backward IS the plain version's VJP), except ``gather_sum``'s, whose
+    plain backward adds with atomics, within 1e-5."""
+    kernel, plain, inputs = _grad_case(name, cuda)
+    got_out = kernel(*inputs)
+    assert got_out.grad_fn is not None
+    cot = torch.randn(got_out.shape, generator=torch.Generator().manual_seed(3)).to(cuda)
+    got = torch.autograd.grad(got_out, inputs, cot)
+    want_out = plain(*inputs)
+    want = torch.autograd.grad(want_out, inputs, cot)
+    torch.testing.assert_close(got_out, want_out, **TOL)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and float(a.abs().max()) > 0
+        if name == "gather_sum":
+            torch.testing.assert_close(a, b, **TOL)
+        else:
+            assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_launch_outside_its_function_raises(cuda):
+    """A launch whose result autograd cannot see, on an input that requires
+    grad, raises instead of dropping the gradient."""
+    kernel, plain, (x, w1, b1, w2, b2) = _grad_case("banked_mlp", cuda)
+    with pytest.raises(RuntimeError, match="drop the gradient"):
+        bank_ops._launch(x, w1, b1, w2, b2, SLOT_RANGES)
+    a = torch.rand((2, 9, 32), device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="item 10"):
+        scan_ops.linear_scan(a, a, torch.zeros((2, 32), device=cuda))
+    with torch.no_grad():
+        assert scan_ops.linear_scan(a, a, torch.zeros((2, 32), device=cuda)).shape == a.shape
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", ["latency_p", "success"])
+def test_cost_model_gradient_through_kernels_matches_plain(cuda, metric):
+    """The regression test of the gradient repair: under ``use_pallas=True``
+    every parameter leaf of a cost model gets a non-zero gradient, each
+    within rtol 1e-4 plus 1e-5 x its largest entry of the plain path's, on
+    one exact-banded batch of 512 graphs (4 ``banked_mlp`` and 1 ``mp_sweep``
+    launches)."""
+    traces = WorkloadGenerator(seed=8).corpus(700)
+    ds = batching.dataset_from_traces(traces, metric)
+    ds, buckets = batching.bucket_dataset(ds, exact=True)
+    g, y, band = next(iter(batching.bucketed_batches(ds, buckets, 512, rng=np.random.default_rng(0), device=cuda)))
+    assert len(band.levels) >= 1
+    cfg = CostModelConfig(metric=metric, gnn=GNNConfig(use_pallas=True))
+    plain = CostModelConfig(metric=metric, gnn=GNNConfig(use_pallas=False))
+    params = nn.to_device(init_cost_model(torch.Generator().manual_seed(0), cfg), cuda)
+    before = (bank_ops.banked_mlp_slotted.launches, sweep_ops.mp_sweep.launches)
+    loss, grads = loop.loss_and_grads(params, g, y, cfg, band)
+    assert (bank_ops.banked_mlp_slotted.launches - before[0], sweep_ops.mp_sweep.launches - before[1]) == (4, 1)
+    want_loss, want = loop.loss_and_grads(params, g, y, plain, band)
+    torch.testing.assert_close(loss, want_loss, **TOL)
+    for (path, a), (_, b) in zip(nn.tree_leaves_with_paths(grads), nn.tree_leaves_with_paths(want)):
+        assert float(a.abs().max()) > 0, path
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5 * float(b.abs().max()), msg=str(path))

@@ -226,7 +226,8 @@ def test_estimator_runs_on_the_card_unless_asked_otherwise(bundle_dir):
 
 
 def test_port_imports_no_jax_and_nothing_of_repro():
-    """Every module of the port, and chip_smoke.py, import without JAX or ``repro``."""
+    """Every module of the port (the training and launch packages among them),
+    and chip_smoke.py, import without JAX or ``repro``."""
     modules = sorted(
         ".".join(p.relative_to(REPO / "src").with_suffix("").parts).replace(".__init__", "")
         for p in (REPO / "src" / "repro_torch").rglob("*.py")
@@ -243,3 +244,4 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "repro_torch.serve.estimator" in modules and "repro_torch.kernels._build" in modules
+    assert {"repro_torch.training", "repro_torch.training.loop", "repro_torch.launch", "repro_torch.launch.train"} <= set(modules)
