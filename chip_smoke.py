@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one CUDA card and check them.
+"""Drive the PyTorch port's serving, service and training paths on one CUDA card and check them.
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -27,6 +27,23 @@ Each phase prints one JSON line:
            profiled step, 20 steps with the kernels and with the plain path,
            validation loss below its value at init for every metric, and the
            exported bundle served on the card against the trained params
+  service  that trained bundle behind PlacementService on the card (default
+           policy: double-buffered drains) under the load harness's open-loop
+           traffic (16 structures; 4-candidate requests on its metric set, which
+           take merged drains; 256-candidate requests on all five metrics, which
+           take per-structure drains; estimate requests of corpus graphs; p95 SLO
+           250 ms): the launch half of a merged, a per-structure and an estimate
+           group under set_sync_debug_mode("error"), the rate calibrated by a
+           serial probe, a knee sweep over 0.25x to 4x of it, Poisson and bursty
+           runs at 0.8x the knee with double buffering on and off (every answer
+           against the card estimator's direct call, a sample against the CPU;
+           each of the five COSTREAM kernels launched from the drains); breaker,
+           NaN guard, swap_bundle and a shadow verdict; 20 profiled drains
+  control  the seeded drift-and-failure fleet of docs/controller.md (8 queries, 30
+           ticks, seed 7) re-planned through the card estimator beside the static
+           fleet; its decisions equal to the same controller over the CPU
+           estimator; SLO violations, migrations, re-plans, tick ms split into
+           scoring and the rest
   lm       full-width RecurrentGemma-2B (26 layers, random bf16 weights from a
            seed) serving 4 requests: 2048-token prompts prefilled into the
            decode cache with serve_step, then 64 greedy decode steps; 18
@@ -80,7 +97,10 @@ TRAJ_REL = 1e-3
 SIZES = {"traces": 4096, "many_batch": 512, "drain_structures": 16, "drain_candidates": 256,
          "score_candidates": 1024, "placed_candidates": 256, "timing_reps": 20,
          "train_traces": 22_000, "train_epochs": 2, "train_trajectory": 20,
-         "lm_reduced": False, "lm_batch": 4, "lm_prompt": 2048, "lm_decode": 64}
+         "lm_reduced": False, "lm_batch": 4, "lm_prompt": 2048, "lm_decode": 64,
+         "svc_structures": 16, "svc_small": 192, "svc_small_cands": 4, "svc_large": 192, "svc_large_cands": 256,
+         "svc_estimates": 16, "svc_estimate_graphs": 32, "svc_slo_ms": 250.0, "svc_knee": (0.25, 0.5, 1.0, 2.0, 4.0),
+         "svc_profile_drains": 20, "ctl_queries": 8, "ctl_ticks": 30}
 DEVICE = "cuda"
 
 
@@ -108,6 +128,429 @@ def tensor_core_mmas(library: str):
         elif name is not None and "HMMA" in line and "TF32" in line:
             counts[name] += 1
     return counts
+
+
+#: The service phase's traffic, after the project's load harness
+#: (benchmarks/load_harness.py, docs/load_harness.md): its 16 structures and
+#: 4-candidate score requests on its metric set (dispatch-bound: merged
+#: drains), requests of 256 candidates on all five metrics (compute-bound:
+#: per-structure drains) and estimate requests of corpus graphs, a p95 SLO of
+#: 250 ms, the rate calibrated by a closed-loop serial probe, a knee sweep
+#: over 0.25x to 4x of it, then runs at 0.8x the knee.
+HARNESS_METRICS = ("latency_p", "success", "backpressure")
+CONTROL_SLO_MS = 100.0  # the scenario's e2e latency bound per query (control/scenario.py fleet_queries)
+
+
+def service_phase(bundle, reload_bundle, counted, device_split, card):
+    """``PlacementService`` over the card estimator of a trained bundle, under
+    open-loop load; every answer held against the estimator's direct call."""
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import gnn
+    from repro_torch.core.graph import batch_graphs, build_a_place_batch, build_graph, build_graph_skeleton, query_static
+    from repro_torch.core.model import ALL_METRICS, REGRESSION_METRICS, forward_ensemble, init_cost_model
+    from repro_torch.dsps import WorkloadGenerator
+    from repro_torch.placement.enumerate import sample_assignment_matrix
+    from repro_torch.serve import chaos
+    from repro_torch.serve.estimator import CostEstimator, NonFiniteEstimate, graphs_to_device
+    from repro_torch.serve.lifecycle import BundleSwapper
+    from repro_torch.serve.load import bursty_arrivals, find_knee, poisson_arrivals, run_open_loop
+    from repro_torch.serve.policy import DispatchPolicy
+    from repro_torch.serve.service import PlacementService
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    est = CostEstimator.from_bundle(bundle, device=DEVICE)
+    cpu = CostEstimator.from_bundle(bundle, device="cpu")
+    S, slo_s = SIZES["svc_structures"], SIZES["svc_slo_ms"] / 1e3
+    out = {"phase": "service", "card": card,
+           "bundle": {"metrics": list(bundle.metrics), "members": bundle.config(bundle.metrics[0]).n_ensemble,
+                      "hidden": bundle.config(bundle.metrics[0]).gnn.hidden},
+           "policy": {"default": True, "double_buffer": est.policy.resolved_double_buffer(est.device)}}
+
+    # -- the traffic ----------------------------------------------------------------
+    gen = WorkloadGenerator(seed=0)
+    kinds = ("linear", "two_way", "three_way")
+    structures = [(gen.query(kind=kinds[i % 3], name=f"load{i}"), gen.cluster(3 + i % 6)) for i in range(S)]
+    rng = np.random.default_rng(0)
+
+    def cands(q, c, n):
+        a = sample_assignment_matrix(q, c, n, rng)
+        return a[np.arange(n) % len(a)]  # exactly n rows, repeating where the space is small
+
+    reqs = [("score", (*structures[i % S], cands(*structures[i % S], SIZES["svc_small_cands"])), HARNESS_METRICS)
+            for i in range(SIZES["svc_small"])]
+    reqs += [("score", (*structures[i % S], cands(*structures[i % S], SIZES["svc_large_cands"])), ALL_METRICS)
+             for i in range(SIZES["svc_large"])]
+    per = SIZES["svc_estimate_graphs"]
+    traces = WorkloadGenerator(seed=5).corpus(per * SIZES["svc_estimates"])
+    reqs += [("estimate", batch_graphs([build_graph(t.query, t.cluster, t.placement) for t in traces[j:j + per]]),
+              ALL_METRICS) for j in range(0, len(traces), per)]
+    reqs = [reqs[i] for i in np.random.default_rng(1).permutation(len(reqs))]
+    out["traffic"] = {"structures": S, "requests": len(reqs), "small": [SIZES["svc_small"], SIZES["svc_small_cands"]],
+                      "large": [SIZES["svc_large"], SIZES["svc_large_cands"]],
+                      "estimates": [SIZES["svc_estimates"], per], "slo_ms": SIZES["svc_slo_ms"]}
+
+    def direct(r, e):
+        kind, p, ms = r
+        return e.score(*p, ms) if kind == "score" else e.estimate(p, ms)
+
+    def submit(svc, r):
+        kind, p, ms = r
+        return svc.submit_score(*p, ms) if kind == "score" else svc.submit_estimate(p, ms)
+
+    def logits(r, e):
+        """Raw classification logits (metric -> (E, B)) of a request on ``e``."""
+        kind, p, ms = r
+        with torch.no_grad():
+            if kind == "estimate":
+                g = graphs_to_device(p, e.device)
+                return {m: forward_ensemble(e._params_for(m), g, e.config(m)).cpu().numpy() for m in ms}
+            q, c, a = p
+            skel = graphs_to_device(build_graph_skeleton(q, c), e.device)
+            ap = torch.as_tensor(build_a_place_batch(q, c, a), device=e.device)
+            return {m: gnn.apply_gnn_placed_members(e._params_for(m), skel, ap, query_static(q), e.config(m).gnn)[..., 0]
+                    .cpu().numpy() for m in ms}
+
+    def agree(what, got, want, r, e):
+        """Regression within SERVE_RTOL (absolute term 1e-6); votes equal
+        wherever every member's logit is clear of 0 by 1e-3."""
+        if isinstance(got, BaseException) or getattr(got, "degraded", False):
+            raise AssertionError(f"{what}: {got!r} where an answer was due")
+        for m in want:
+            a, b = np.asarray(got[m]), np.asarray(want[m])
+            if a.shape != b.shape or not np.isfinite(a).all():
+                raise AssertionError(f"{what} {m}: shape {a.shape} against {b.shape}, or non-finite values")
+            if m in REGRESSION_METRICS:
+                if not np.allclose(a, b, rtol=SERVE_RTOL, atol=1e-6):
+                    raise AssertionError(f"{what} {m}: max rel err "
+                                         f"{float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-6)))}")
+            elif not np.array_equal(a, b):
+                clear = (np.abs(logits(r, e)[m]) > 1e-3).all(axis=0)
+                if not np.array_equal(a[clear], b[clear]):
+                    raise AssertionError(f"{what} {m}: votes differ away from the threshold")
+
+    t0 = time.perf_counter()
+    want = [direct(r, est) for r in reqs]  # the card estimator's direct per-request answers
+    out["direct_s"] = time.perf_counter() - t0
+
+    # -- the launch half waits for nothing on the host ------------------------------------
+    probe = PlacementService(est, auto_start=False)
+    out["warm_forwards"] = probe.warm(structures, max_cands=SIZES["svc_small_cands"])
+    small = [i for i, r in enumerate(reqs) if r[2] == HARNESS_METRICS]
+    one_each = [next(i for i in small if reqs[i][1][0] is q) for q, _ in structures]
+    large = [i for i, r in enumerate(reqs) if r[0] == "score" and r[2] == ALL_METRICS][:2]
+    ests = [i for i, r in enumerate(reqs) if r[0] == "estimate"][:2]
+    launch_half = {}
+    for label, idx, launch, n_cross in (("merged score group", one_each, probe._launch_scores, len(one_each)),
+                                        ("per-structure score group", large, probe._launch_scores, 0),
+                                        ("estimate group", ests, probe._launch_estimates, 0)):
+        for i in idx:
+            submit(probe, reqs[i])
+        popped = list(probe._queue)
+        probe._queue.clear()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            finalize = launch(popped)
+        except RuntimeError as e:
+            raise AssertionError(f"service launch half, {label}: a host-device sync ({e})") from e
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        ms = (time.perf_counter() - t) * 1e3
+        answers, n_fwd, got_cross = finalize()
+        if probe.stats.n_retries or got_cross != n_cross:
+            raise AssertionError(f"service launch half, {label}: {probe.stats.n_retries} retries (a launch that "
+                                 f"failed, e.g. on a sync), {got_cross} cross-query requests, want {n_cross}")
+        for i, a in zip(idx, answers):
+            agree(f"launch-half {label} request {i}", a, want[i], reqs[i], est)
+        launch_half[label] = {"requests": len(idx), "launch_ms": ms, "forwards": n_fwd, "syncs": 0}
+    probe.close()
+    out["launch_half_sync_free"] = launch_half
+
+    # -- the rate, the knee, the runs (counted: the service's own drains) -----------------
+    cgen = WorkloadGenerator(seed=991)  # a throw-away structure, as the harness calibrates
+    cq, cc = cgen.query(kind="linear", name="calib"), cgen.cluster(4)
+    ca = cands(cq, cc, SIZES["svc_small_cands"])
+    est.score(cq, cc, ca, HARNESS_METRICS)
+    t0 = time.perf_counter()
+    for _ in range(24):
+        est.score(cq, cc, ca, HARNESS_METRICS)
+    rate = 24 / (time.perf_counter() - t0)
+
+    def instrument(svc):
+        split = {"launch": [], "finalize": []}
+        for name, key in (("_launch_group", "launch"), ("_finalize_group", "finalize")):
+            orig = getattr(svc, name)
+
+            def timed(*a, _orig=orig, _key=key):
+                t = time.perf_counter()
+                r = _orig(*a)
+                split[_key].append((time.perf_counter() - t) * 1e3)
+                return r
+
+            setattr(svc, name, timed)
+        return split
+
+    def run(svc, r, kind, seed):
+        n = len(reqs)
+        sched = (poisson_arrivals(r, n, seed=seed) if kind == "poisson"
+                 else bursty_arrivals(r, n, seed=seed, burst_factor=4.0, burst_fraction=0.25))
+        futs = [None] * n
+
+        def fire(i):
+            def f():
+                futs[i] = submit(svc, reqs[i])
+                return futs[i]
+            return f
+
+        svc.stats.reset()
+        return run_open_loop(svc, [fire(i) for i in range(n)], sched, slo_s=slo_s, timeout_s=300), futs
+
+    def fresh(db):
+        """A warmed service with one closed-loop pass behind it (every request
+        shape seen once), so each run starts from the same history: merged-mix
+        admissions (``max_merged_mixes``) are spent per service."""
+        svc = PlacementService(est, double_buffer=db, warmup=structures, warmup_cands=SIZES["svc_small_cands"])
+        for f in [submit(svc, r) for r in reqs]:
+            f.result(timeout=300)
+        return svc, instrument(svc)
+
+    def load_runs():
+        sweep = {}
+        sweeper, _ = fresh(True)
+
+        def at_rate(r):
+            rep, futs = run(sweeper, r, "poisson", 7)
+            sweep[r] = (rep, futs)
+            return rep
+
+        knee, points = find_knee(at_rate, [rate * f for f in SIZES["svc_knee"]], slo_s)
+        op = 0.8 * (knee if knee is not None else rate * min(SIZES["svc_knee"]))
+        runs = {}
+        for kind in ("poisson", "bursty"):
+            for db in (True, False):
+                svc, split = fresh(db)
+                mixes = svc._n_runtime_mixes
+                runs[(kind, db)] = (*run(svc, op, kind, 11), split, (mixes, svc._n_runtime_mixes - mixes))
+                svc.close()
+        return knee, points, op, sweep, runs, sweeper
+
+    (knee, points, op, sweep, runs, sweeper), got = counted("service", load_runs,
+                                                   ("banked_mlp", "mp_update", "mp_sweep", "gather_sum", "segment_sum"),
+                                                   ("linear_scan",))
+    out["launches"] = got
+    out["calibrated_serial_rps"] = rate
+    out["knee_rps"] = knee
+    out["knee_sweep"] = [{"rps": p.rate, "p95_ms": p.p95_s * 1e3, "slo_violation_rate": p.slo_violation_rate}
+                         for p in points]
+    out["operating_rps"] = op
+    checked = 0
+    for futs in [f for _, f in sweep.values()] + [r[1] for r in runs.values()]:
+        for i, f in enumerate(futs):
+            agree(f"service request {i}", f.result(timeout=60), want[i], reqs[i], est)
+            checked += 1
+    out["answers_checked_against_direct"] = checked
+    result = {}
+    for (kind, db), (rep, _, split, mixes) in runs.items():
+        st = rep.stats
+        result[f"{kind}_{'double_buffer' if db else 'serial'}"] = {
+            "offered_rps": rep.offered_rate, "achieved_rps": rep.achieved_rate,
+            "p50_ms": rep.p50_s * 1e3, "p95_ms": rep.p95_s * 1e3, "p99_ms": rep.p99_s * 1e3,
+            "slo_violation_rate": rep.slo_violation_rate, "answered": rep.n_answered, "rejected": rep.n_rejected,
+            "failed": rep.n_failed, "drains": st.n_batches, "mean_drain": st.n_drained / max(st.n_batches, 1),
+            "max_drain": st.max_drain, "forwards": st.n_forwards, "cross_query": st.n_cross_query,
+            "mean_queue_wait_ms": st.queue_wait_s / max(st.n_drained, 1) * 1e3,
+            "runtime_mixes_admitted_before_and_during": mixes,
+            "host_ms_per_group": {k: {"groups": len(v), "mean": float(np.mean(v)), "p50": float(np.median(v)),
+                                      "p95": float(np.percentile(v, 95))} for k, v in split.items()}}
+        if rep.n_answered != rep.n_requests:
+            raise AssertionError(f"service {kind} double_buffer={db}: {rep.n_answered} of {rep.n_requests} answered")
+    out["runs"] = result
+
+    # a sample held against the same bundle on the CPU
+    sample = small[:6] + [i for i, r in enumerate(reqs) if r[0] == "score" and r[2] == ALL_METRICS][:3] + ests[:2]
+    futs = runs[("poisson", True)][1]
+    for i in sample:
+        agree(f"service request {i} against the CPU", futs[i].result(), direct(reqs[i], cpu), reqs[i], cpu)
+    out["answers_checked_against_cpu"] = len(sample)
+
+    # 20 warm drains under the profiler
+    svc = sweeper
+    burst = [reqs[i] for i in one_each]
+    n0 = svc.stats.n_batches
+
+    def twenty():
+        for _ in range(SIZES["svc_profile_drains"]):
+            for f in [submit(svc, r) for r in burst]:
+                f.result(timeout=60)
+
+    out["profile"] = {**device_split(twenty), "drains": svc.stats.n_batches - n0, "requests_a_burst": len(burst)}
+    svc.close()
+
+    # -- faults: breaker, NaN guard, swap, shadow ----------------------------------
+    # per-structure drains: a forward that raises is retried, then answered
+    # from the fallback; two such failures open the breaker
+    fast = DispatchPolicy(breaker_window=8, breaker_min_samples=2, retry_backoff_s=0.001)
+    bsvc = PlacementService(est, policy=fast, cross_query=False)
+    fault = chaos.RaiseFault(p=1.0, seed=0)
+    est.add_hook(fault)
+    try:
+        first = [bsvc.submit_score(*reqs[i][1], reqs[i][2]).result(timeout=60) for i in small[:2]]
+        opened = bsvc.breaker.state
+        short = bsvc.submit_score(*reqs[small[4]][1], reqs[small[4]][2]).result(timeout=60)
+    finally:
+        est.remove_hook(fault)
+    if not all(getattr(a, "degraded", False) and a.cause is not None for a in first) or opened != "open":
+        raise AssertionError(f"service breaker: state {opened} after raising forwards; answers {first}")
+    if not getattr(short, "degraded", False) or short.cause is not None:
+        raise AssertionError("service breaker: an open breaker must answer from the fallback without the estimator")
+    time.sleep(fast.breaker_cooldown_s)
+    healed = bsvc.submit_score(*reqs[small[5]][1], reqs[small[5]][2]).result(timeout=60)
+    agree("service request after the breaker closed", healed, want[small[5]], reqs[small[5]], est)
+    breaker = {"state_after_faults": opened, "state_after_cooldown": bsvc.breaker.state, "opens": bsvc.breaker.n_opens,
+               "degraded": bsvc.stats.n_degraded, "retries": bsvc.stats.n_retries, "failed": bsvc.stats.n_failed}
+    bsvc.close()
+    if breaker["state_after_cooldown"] != "closed" or breaker["failed"]:
+        raise AssertionError(f"service breaker: {breaker}")
+    out["breaker"] = breaker
+
+    nsvc = PlacementService(est, cross_query=False)
+    nan = chaos.NaNFault(p=1.0, seed=0)
+    est.add_hook(nan)
+    try:
+        scored = nsvc.submit_score(*reqs[small[0]][1], reqs[small[0]][2]).result(timeout=60)
+        try:
+            nsvc.submit_estimate(reqs[ests[0]][1], reqs[ests[0]][2]).result(timeout=60)
+            raise AssertionError("service NaN guard: a poisoned estimate was delivered")
+        except NonFiniteEstimate:
+            pass
+    finally:
+        est.remove_hook(nan)
+    if not (getattr(scored, "degraded", False) and isinstance(scored.cause, NonFiniteEstimate)):
+        raise AssertionError("service NaN guard: a poisoned score was not caught")
+    out["nan_guard"] = {"nonfinite": nsvc.stats.n_nonfinite, "injected": nan.n_injected, "degraded": nsvc.stats.n_degraded}
+    nsvc.close()
+
+    ssvc = PlacementService(est)
+    pick = small[:3] + large + ests
+    before = [submit(ssvc, reqs[i]).result(timeout=60) for i in pick]
+    old = ssvc.swap_bundle(reload_bundle(), wait=True)
+    after = [submit(ssvc, reqs[i]).result(timeout=60) for i in pick]
+    if old is not est or ssvc.estimator is est or not all(
+            np.array_equal(a[m], b[m]) for a, b in zip(before, after) for m in a):
+        raise AssertionError("service swap: answers after swapping in the same bundle from disk differ")
+    out["swap"] = {"requests": len(pick), "bitwise_equal": True, "swaps": ssvc.stats.n_swaps}
+    ssvc.close()
+
+    gen1 = torch.Generator().manual_seed(1)
+    rand = CostEstimator({m: (init_cost_model(gen1, bundle.config(m)), bundle.config(m)) for m in bundle.metrics},
+                         device=DEVICE)
+    shsvc = PlacementService(est, policy=DispatchPolicy(shadow_fraction=1.0))
+    swapper = BundleSwapper(shsvc, seed=0)
+    swapper.start_shadow(rand)
+    for f in [submit(shsvc, reqs[i]) for i in small[:32]]:
+        f.result(timeout=60)
+    swapper.drain_shadow(timeout=120)
+    verdict = swapper.verdict()
+    swapper.close()
+    shsvc.close()
+    out["shadow_seed1_random_candidate"] = dc.asdict(verdict)
+    if verdict.n_mirrored == 0 or verdict.n_candidate_errors:
+        raise AssertionError(f"service shadow: {verdict}")
+    out["max_memory_allocated_bytes"] = int(torch.cuda.max_memory_allocated())
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    return est, cpu
+
+
+def control_phase(est, cpu, counted, card):
+    """The seeded drift-and-failure fleet of docs/controller.md, re-planned
+    through the card estimator beside the static fleet; decisions held
+    against the same controller over the CPU estimator."""
+    import numpy as np
+
+    from repro_torch.control import FleetRuntime, PlacementController, build_scenario, run_static
+    from repro_torch.serve.policy import active_policy
+
+    n_q, n_ticks = SIZES["ctl_queries"], SIZES["ctl_ticks"]
+    t0 = time.perf_counter()
+    fleet, cluster, events = build_scenario(n_q, n_ticks, seed=7)
+    out = {"phase": "control", "card": card, "queries": n_q, "ticks": n_ticks, "seed": 7,
+           "scenario_s": time.perf_counter() - t0, "slo_ms_per_query": CONTROL_SLO_MS}
+    tick_s = active_policy().controller_tick_s
+
+    def runtime(snaps):
+        rt = FleetRuntime(fleet, cluster, events, seed=1, tick_s=tick_s)
+        tick = rt.tick
+
+        def recorded():
+            snaps.append(tick())
+            return snaps[-1]
+
+        rt.tick = recorded
+        return rt
+
+    def violations(snaps):
+        return sum(q.cost_ms > CONTROL_SLO_MS for s in snaps for q in s.queries.values())
+
+    def drive(e):
+        snaps = []
+        ctl = PlacementController(runtime(snaps), estimator=e, seed=0)
+        score_s = []
+        score_all = ctl.replanner._score_all
+
+        def timed(*a):
+            t = time.perf_counter()
+            r = score_all(*a)
+            score_s.append(time.perf_counter() - t)
+            return r
+
+        ctl.replanner._score_all = timed
+        tick_ms, scoring_ms = [], []
+        for _ in range(n_ticks):
+            n = len(score_s)
+            t = time.perf_counter()
+            ctl.step()
+            tick_ms.append((time.perf_counter() - t) * 1e3)
+            scoring_ms.append(sum(score_s[n:]) * 1e3)
+        return ctl.report(), snaps, tick_ms, scoring_ms
+
+    cold = drive(est)
+    (warm, snaps, tick_ms, scoring_ms), got = counted("control", lambda: drive(est), ("banked_mlp",), ("linear_scan",))
+    on_cpu = drive(cpu)[0]
+    static_snaps = []
+    static = run_static(runtime(static_snaps), n_ticks)
+    flips = []
+    for r_card, r_cpu in zip(warm.records, on_cpu.records):
+        for a, b in zip(r_card.decisions, r_cpu.decisions):
+            ka, kb = a.to_dict(), b.to_dict()
+            floats = ("predicted_cost", "current_cost", "gain")
+            if {k: v for k, v in ka.items() if k not in floats} != {k: v for k, v in kb.items() if k not in floats}:
+                flips.append({"tick": r_card.tick, "query_id": a.query_id, "card": ka, "cpu": kb,
+                              "margin": {"card_gain": a.gain, "cpu_gain": b.gain}})
+        if len(r_card.decisions) != len(r_cpu.decisions):
+            flips.append({"tick": r_card.tick, "decisions": [len(r_card.decisions), len(r_cpu.decisions)]})
+    rest = [t - s for t, s in zip(tick_ms, scoring_ms)]
+    out.update({
+        "controller": {**warm.to_dict(), "slo_violations": violations(snaps)},
+        "static": {**static.to_dict(), "slo_violations": violations(static_snaps)},
+        "cpu_estimator": on_cpu.to_dict(),
+        "cold_replays_warm": cold[0].decision_log() == warm.decision_log(),
+        "tick_ms": {"mean": float(np.mean(tick_ms)), "p50": float(np.median(tick_ms)), "max": float(np.max(tick_ms))},
+        "tick_scoring_ms": {"mean": float(np.mean(scoring_ms)), "max": float(np.max(scoring_ms))},
+        "tick_rest_ms": {"mean": float(np.mean(rest)), "max": float(np.max(rest))},
+        "launches": got, "decision_flips_card_vs_cpu": flips, "seconds": time.perf_counter() - t0,
+    })
+    emit(out)
+    if flips:
+        raise AssertionError(f"control: {len(flips)} re-plan decision(s) differ between the card and the CPU")
+    if not out["cold_replays_warm"]:
+        raise AssertionError("control: a warm replay on the card changed the decision log")
 
 
 def main() -> int:
@@ -868,12 +1311,22 @@ def main() -> int:
                        "meta": bundle.meta}
     train["max_memory_allocated_bytes"] = int(torch.cuda.max_memory_allocated())
     emit(train)
-    shutil.rmtree(train_root, ignore_errors=True)
-    del served, bundle, results, params0, g1, y1, val_g
+    del served, results, params0, g1, y1, val_g
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
-    # -- 5. lm: RecurrentGemma-2B serving through make_serve_step -----------------
+    # -- 5. service and 6. control: the trained bundle behind PlacementService
+    # and the fleet controller ------------------------------------------------
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+    svc_est, svc_cpu = service_phase(bundle, lambda: artifacts.load_bundle("main"), counted, device_split, card)
+    control_phase(svc_est, svc_cpu, counted, card)
+    shutil.rmtree(train_root, ignore_errors=True)
+    del bundle, svc_est, svc_cpu
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # -- 7. lm: RecurrentGemma-2B serving through make_serve_step -----------------
     costream = ("banked_mlp", "mp_update", "mp_sweep", "gather_sum", "segment_sum")
     n_rec = sum(k == "rec" for k in lm_cfg.pattern) * lm_cfg.n_groups + sum(k == "rec" for k in lm_cfg.suffix)
     prompt, n_dec = SIZES["lm_prompt"], SIZES["lm_decode"]
@@ -982,7 +1435,7 @@ def main() -> int:
         raise AssertionError(f"lm: the reduced model on the card disagrees with the CPU "
                              f"(max abs err {max_diff(pairs)})")
 
-    # -- 6. kernel summary (the representative case: the most work on the path) -------
+    # -- 8. kernel summary (the representative case: the most work on the path) -------
     sources = {
         "banked_mlp": ("src/repro_torch/csrc/banked_mlp.cu", "src/repro/kernels/banked_mlp/kernel.py:53"),
         "mp_update": ("src/repro_torch/csrc/mp_update.cu", "src/repro/kernels/mp_update/kernel.py:64"),
@@ -1007,10 +1460,8 @@ def main() -> int:
                         "backward_launches_per_train_step": backward[name]["launches_per_step"] if name in backward else 0})
     emit({"kernels": summary})
 
-    # -- 7. the card, 8. status ---------------------------------------------------
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    print(card.splitlines()[0], flush=True)
+    # -- 9. the card, 10. status ---------------------------------------------------
+    print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -238,7 +238,7 @@ def _dataflow_sweep(params, h, a_flow, op_depth, op_mask, cfg: GNNConfig, ranges
             msg = sum(h[..., p, :] for p in parents[1:]) + h[..., parents[0], :]
             x = torch.cat([h[..., s, :], msg], dim=-1)  # (E, B, 2H)
             news.append(nn.apply_mlp(_bank_member(params["op_upd"], t), x))
-        idx = torch.tensor(cols, device=h.device)
+        idx = nn.index_tensor(cols, h.device)
         h = h.index_copy(h.ndim - 2, idx, torch.stack(news, dim=-2))
     return h
 
@@ -293,7 +293,7 @@ def _trim_rows(g: JointGraph, rows: Tuple[int, ...]) -> JointGraph:
     states are masked to zero before every reduction, so removing them
     changes no prediction.  Hardware rows stay untouched.
     """
-    idx = torch.tensor(rows, device=g.op_x.device)
+    idx = nn.index_tensor(rows, g.op_x.device)
     return g._replace(
         op_x=g.op_x.index_select(1, idx),
         op_type=g.op_type.index_select(1, idx),
@@ -435,7 +435,7 @@ def apply_gnn_merged(
     ranges = SLOT_RANGES
     if banding.rows is not None:
         skels = _trim_rows(skels, banding.rows)
-        a_place = a_place.index_select(1, torch.tensor(banding.rows, device=a_place.device))
+        a_place = a_place.index_select(1, nn.index_tensor(banding.rows, a_place.device))
         ranges = banding.ranges
     plan = _banded_plan(banding, ranges)
     n_hw = skels.hw_x.shape[-2]
@@ -608,7 +608,7 @@ def apply_gnn_placed_stacked(
 
         chunk = active_policy().score_chunk
     order, ranges, updates, levels = _trimmed_layout(static)
-    idx = torch.tensor(order, device=skel.op_x.device)
+    idx = nn.index_tensor(order, skel.op_x.device)
     op_x = skel.op_x.index_select(0, idx)  # (n, F)
     hw_x = skel.hw_x[:n_hw]  # (n_hw, F_hw)
     a_flow = skel.a_flow.index_select(0, idx).index_select(1, idx)  # (n, n)

@@ -236,3 +236,47 @@ def apply_mlp_bank_slotted(
 
 def to_device(params, device: Optional[torch.device]) -> Params:
     return tree_map(lambda t: t.to(device), params)
+
+
+# -- host arrays to the device --------------------------------------------------
+
+Layout = Tuple[Tuple[int, int, torch.dtype, Tuple[int, ...]], ...]
+
+
+def pack_host(arrays: Sequence[np.ndarray], pin: bool) -> Tuple[torch.Tensor, Layout]:
+    """Pack numpy arrays into one host buffer (page-locked when ``pin``):
+    the buffer and each array's ``(offset, bytes, dtype, shape)``."""
+    arrays = [np.ascontiguousarray(a) for a in arrays]
+    layout, off = [], 0
+    for a in arrays:
+        layout.append((off, a.nbytes, torch.from_numpy(a).dtype, a.shape))
+        off += -(-a.nbytes // 8) * 8  # 8-byte aligned, so every field views back
+    buf = torch.empty((max(off, 1),), dtype=torch.uint8, pin_memory=pin)
+    host = buf.numpy()
+    for (o, n, _, _), a in zip(layout, arrays):
+        host[o : o + n] = a.reshape(-1).view(np.uint8)
+    return buf, tuple(layout)
+
+
+def unpack(buf: torch.Tensor, layout: Layout) -> list:
+    """The arrays of ``pack_host``'s layout as views of ``buf`` (on any device)."""
+    return [buf[o : o + n].view(dtype).view(shape) for o, n, dtype, shape in layout]
+
+
+def arrays_to_device(arrays: Sequence[np.ndarray], device) -> list:
+    """Numpy arrays as tensors on ``device``: views of the arrays on the CPU;
+    on a GPU one page-locked staging buffer and ONE ``non_blocking`` copy, so
+    the host never waits for the device's queued work.  The caching host
+    allocator records the copy on the stream and does not hand the buffer
+    out again until the copy has run, so the staging buffer may be dropped
+    here."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return [torch.as_tensor(np.ascontiguousarray(a)) for a in arrays]
+    buf, layout = pack_host(arrays, pin=True)
+    return unpack(buf.to(device, non_blocking=True), layout)
+
+
+def index_tensor(values: Sequence[int], device) -> torch.Tensor:
+    """An int64 index tensor on ``device`` without a host-device sync."""
+    return arrays_to_device([np.asarray(values, dtype=np.int64)], device)[0]

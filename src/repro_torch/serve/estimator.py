@@ -17,12 +17,16 @@ built from an in-memory model dict or a ``CostModelBundle``.  It owns
 * the per-drain-mix **merged-group LRU** of ``score_many``: the device
   skeleton stack of a set of structures, its banding and its parent bound.
 
-PyTorch runs eagerly, so the JAX package's trace caches have no counterpart.
-``deferred=True`` returns a ``DeferredResult`` once the forward is queued on
-the device, before the results are copied to the host.  Two JAX features
-have no counterpart yet: buffer donation (PyTorch frees a chunk's inputs when
-the last reference goes) and the ``add_hook`` / ``_before`` seam (ROADMAP.md
-queue 1, item 7).
+PyTorch runs eagerly, so the JAX package's trace caches have no counterpart,
+and buffer donation none either (PyTorch frees a chunk's inputs when the last
+reference goes).  ``deferred=True`` returns a ``DeferredResult`` once the
+forward is queued on the device, before the results are copied to the host;
+on a GPU that dispatch half waits for nothing on the host (host arrays reach
+the device through one page-locked buffer and a ``non_blocking`` copy,
+``nn.arrays_to_device``), so ``PlacementService`` can launch one drain while
+the device still runs the previous one.  ``add_hook`` is the fault-injection
+and observation seam (``serve/chaos.py``): ``before`` at dispatch, ``after``
+at finalize, ahead of the finiteness guard.
 """
 
 from __future__ import annotations
@@ -56,7 +60,7 @@ from repro_torch.core.graph import (
     skeleton_cache_key,
 )
 from repro_torch.core.model import CostModelConfig, forward_ensemble
-from repro_torch.serve.policy import DispatchPolicy, active_policy
+from repro_torch.serve.policy import DispatchPolicy, active_policy, resolve_policy
 from repro_torch.serve.stacking import (
     StackedEnsembles,
     _ensemble_vote,
@@ -123,8 +127,9 @@ def _host(raw: torch.Tensor) -> np.ndarray:
 
 
 def graphs_to_device(g: JointGraph, device) -> JointGraph:
-    """A host ``JointGraph`` of numpy arrays as contiguous tensors on ``device``."""
-    return JointGraph(*[torch.as_tensor(np.ascontiguousarray(x), device=device) for x in g])
+    """A host ``JointGraph`` of numpy arrays as contiguous tensors on ``device``
+    (one asynchronous copy on a GPU: ``nn.arrays_to_device``)."""
+    return JointGraph(*nn.arrays_to_device(list(g), device))
 
 
 # -- stateless scoring primitives -------------------------------------------------
@@ -168,22 +173,20 @@ def placed_predict_fused(
     skel: JointGraph,
     a_place: torch.Tensor,
     static: QueryStatic,
+    n_hw: int,
     deferred: bool = False,
     chunk: Optional[int] = None,
-    n_hw: Optional[int] = None,
 ) -> Dict[str, np.ndarray]:
     """All metrics' ensembles over one query's candidate placements, fused.
 
     One ``apply_gnn_placed_stacked`` call evaluates every (metric, member)
     pair with one kernel launch per GNN stage, on the trimmed active-slot
     layout; the raw ``(sum_E, B)`` block is split back per metric and voted.
-    ``n_hw`` (the skeleton's real host count) saves a device read when the
-    caller knows it.
+    ``n_hw`` is the skeleton's real host count, which the caller reads off
+    its host copy (reading it off ``skel`` would wait for the device).
     """
     if stacked.cfgs[0].traditional_mp:
         raise ValueError("traditional_mp models have no placed forward")
-    if n_hw is None:
-        n_hw = int(skel.hw_mask.sum().item())
     if chunk is None:
         chunk = active_policy().score_chunk
     with torch.no_grad():
@@ -200,9 +203,12 @@ class CostEstimator:
     ``models``: dict metric -> (params, CostModelConfig), exactly the shape
     ``CostModelBundle.models`` carries (``from_bundle`` is the one-liner);
     params may live on any device and are copied to ``device`` on first use.
-    ``policy``: a ``DispatchPolicy`` (default: the built-in defaults).
+    ``policy``: a ``DispatchPolicy``; omitted, the host profile / env
+    override resolves one (``serve.policy.resolve_policy``).
     ``device``: where every forward runs; None means ``"cuda"`` and raises
     when no GPU is present.
+    Thread-safety: individual calls are safe to issue from one thread at a
+    time; ``PlacementService`` adds the concurrent micro-batching front-end.
     """
 
     def __init__(
@@ -219,7 +225,7 @@ class CostEstimator:
         if not isinstance(self.models, Mapping):
             raise TypeError(f"models must be a mapping, got {type(models)}")
         self.meta = dict(meta or {})
-        self.policy = (policy if policy is not None else active_policy()).validate()
+        self.policy = (policy if policy is not None else resolve_policy()).validate()
         self._skeletons: "OrderedDict[Tuple, Tuple[JointGraph, JointGraph, QueryStatic]]" = OrderedDict()
         self._stacked: Dict[Tuple[str, ...], Optional[StackedEnsembles]] = {}
         # cross-query drain mixes: frozenset of structure keys -> (key ->
@@ -227,10 +233,45 @@ class CostEstimator:
         self._merged_groups: "OrderedDict[frozenset, Tuple]" = OrderedDict()
         self._params: Dict[str, object] = {}  # metric -> params on self.device
         self._optimizer = None
+        # fault-injection / observation hooks (serve.chaos): objects with
+        # optional ``before(kind, n)`` / ``after(kind, out) -> out | None``
+        self._hooks: List[object] = []
+
+    # -- hooks (the chaos-injection and observation seam) -------------------------
+
+    def add_hook(self, hook) -> None:
+        """Install a call hook.  ``before(kind, n)`` runs at dispatch time of
+        every facade call (``kind`` in {"estimate", "score", "estimate_many",
+        "score_many"}, ``n`` the row/graph count) and may raise or block —
+        exactly what a real fault does.  ``after(kind, out)`` runs at
+        finalize time (inside ``DeferredResult.result()`` for deferred
+        calls) and may return a replacement output; the finiteness guard
+        runs AFTER all hooks, so injected NaNs are caught like real ones."""
+        self._hooks.append(hook)
+
+    def remove_hook(self, hook) -> None:
+        self._hooks.remove(hook)
+
+    def _before(self, kind: str, n: int) -> None:
+        for h in self._hooks:
+            before = getattr(h, "before", None)
+            if before is not None:
+                before(kind, n)
 
     def _finish(self, kind: str, finalize, deferred: bool):
-        """Wrap a finalize thunk with the finiteness guard."""
-        return _maybe_defer(lambda: _check_finite(kind, finalize()), deferred)
+        """Wrap a finalize thunk with after-hooks + the finiteness guard."""
+
+        def run():
+            out = finalize()
+            for h in self._hooks:
+                after = getattr(h, "after", None)
+                if after is not None:
+                    repl = after(kind, out)
+                    if repl is not None:
+                        out = repl
+            return _check_finite(kind, out)
+
+        return _maybe_defer(run, deferred)
 
     @classmethod
     def from_bundle(
@@ -298,6 +339,7 @@ class CostEstimator:
         """
         metrics = tuple(metrics) if metrics is not None else tuple(self.models)
         g = self._as_graphs(batch)
+        self._before("estimate", int(g.op_x.shape[0]) if g.op_x.ndim == 3 else 1)
         stacked = self._stacked_for(metrics)
         with torch.no_grad():
             if stacked is None:  # mixed architectures: per-metric forwards, shared batch
@@ -367,15 +409,16 @@ class CostEstimator:
             n = len(assignments)
             if n == 0:
                 raise ValueError("no candidates to score")
+            self._before("score", n)
             a_place = build_a_place_batch(query, cluster, assignments)
             pad = bucket_size(n) - n
             if pad:
                 a_place = np.concatenate([a_place, np.repeat(a_place[-1:], pad, axis=0)])
-            a_place = torch.as_tensor(a_place, device=self.device)
+            (a_place,) = nn.arrays_to_device([a_place], self.device)
             if stacked is not None:
                 pending = placed_predict_fused(
-                    stacked, skel, a_place, static, deferred=True,
-                    chunk=self.policy.score_chunk, n_hw=n_hw,
+                    stacked, skel, a_place, static, n_hw, deferred=True,
+                    chunk=self.policy.score_chunk,
                 )
                 return self._finish(
                     "score", lambda: {m: v[:n] for m, v in pending.result().items()}, deferred
@@ -524,6 +567,7 @@ class CostEstimator:
                 return [o if o is not None else {m: template[m][:0] for m in metrics} for o in out]
 
             return _maybe_defer(finalize_fallback, deferred)
+        self._before("estimate_many", sum(int(g.op_x.shape[0]) for g in host))
         merged, sizes = merge_graph_batches(host)
         pending = self._merged_forward(merged, sizes, metrics, max_rows, deferred=True)
         return self._finish("estimate_many", pending.result, deferred)
@@ -570,6 +614,7 @@ class CostEstimator:
                 raise ValueError("no candidates to score")
             mats.append(a)
             groups.setdefault(keys[i], []).append(i)
+        self._before("score_many", sum(len(a) for a in mats))
 
         index_of, skels_dev, banding, max_parents = self._merged_group_for(requests, groups)
         blocks, ids = [], []
@@ -637,18 +682,19 @@ class CostEstimator:
     ) -> List[Dict[str, np.ndarray]]:
         """Chunked ``apply_gnn_merged`` over a structure-major placement batch.
 
-        Each ``max_rows`` chunk (not bucket-padded, as in ``_merged_forward``)
-        is queued on the device before any is read back.
+        The rows go to the device in one copy; each ``max_rows`` chunk (not
+        bucket-padded, as in ``_merged_forward``) is queued on the device
+        before any is read back.
         """
         total = int(a_place.shape[0])
         step = max_rows if max_rows else total
+        skel_id_dev, a_place_dev = nn.arrays_to_device([skel_id, a_place], self.device)
         launched: List[torch.Tensor] = []
         for s in range(0, total, step):
             with torch.no_grad():
                 launched.append(apply_gnn_merged(
-                    stacked.params, skels_dev, torch.as_tensor(skel_id[s : s + step], device=self.device),
-                    torch.as_tensor(a_place[s : s + step], device=self.device), stacked.cfgs[0].gnn, banding,
-                    max_parents,
+                    stacked.params, skels_dev, skel_id_dev[s : s + step], a_place_dev[s : s + step],
+                    stacked.cfgs[0].gnn, banding, max_parents,
                 ))
         return _maybe_defer(lambda: self._split_back(launched, stacked, metrics, sizes), deferred)
 

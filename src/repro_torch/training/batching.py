@@ -31,6 +31,7 @@ from typing import Iterator, List, NamedTuple, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch import nn
 from repro_torch.core.bucketing import batch_banding_cached, exact_banding_cached
 from repro_torch.core.graph import BatchBanding, JointGraph, batch_graphs, build_graph
 from repro_torch.core.model import label_array
@@ -106,25 +107,15 @@ class StagedBatch(NamedTuple):
     (page-locked when it is bound for a CUDA device)."""
 
     buf: torch.Tensor  # uint8
-    layout: Tuple[Tuple[int, int, torch.dtype, Tuple[int, ...]], ...]  # (offset, bytes, dtype, shape), labels last
+    layout: nn.Layout  # (offset, bytes, dtype, shape), labels last
 
     @classmethod
     def of(cls, g: JointGraph, y: np.ndarray, pin: bool) -> "StagedBatch":
-        arrays = [np.ascontiguousarray(x) for x in g] + [np.ascontiguousarray(y)]
-        layout, off = [], 0
-        for a in arrays:
-            layout.append((off, a.nbytes, torch.from_numpy(a).dtype, a.shape))
-            off += -(-a.nbytes // 8) * 8  # 8-byte aligned, so every field views back
-        buf = torch.empty((max(off, 1),), dtype=torch.uint8, pin_memory=pin)
-        host = buf.numpy()
-        for (o, n, _, _), a in zip(layout, arrays):
-            host[o : o + n] = a.reshape(-1).view(np.uint8)
-        return cls(buf, tuple(layout))
+        return cls(*nn.pack_host([*g, y], pin))
 
     def to(self, device) -> Tuple[JointGraph, torch.Tensor]:
         """The batch on ``device`` after one copy (asynchronous from pinned memory)."""
-        buf = self.buf.to(device, non_blocking=True)
-        fields = [buf[o : o + n].view(dtype).view(shape) for o, n, dtype, shape in self.layout]
+        fields = nn.unpack(self.buf.to(device, non_blocking=True), self.layout)
         return JointGraph(*fields[:-1]), fields[-1]
 
 
