@@ -27,6 +27,16 @@ Each phase prints one JSON line:
            profiled step, 20 steps with the kernels and with the plain path,
            validation loss below its value at init for every metric, and the
            exported bundle served on the card against the trained params
+  baselines the paper's baselines and ablations in the train phase's artifact root
+           (hidden 64, 3 members): the traditional-MP forward over the serve phase's
+           4096 graphs (8 banked_mlp launches and no other kernel; kernel against
+           plain and the CPU; its op_upd launch in the kernel table), its gradient
+           against the plain path and a step split; launch/train.py's ablations,
+           flat, extrap and finetune stages, cut in epochs and corpus sizes (each
+           run's validation loss below its value at init; each stage's launches
+           counted; flat predictions on the card against the CPU); the
+           ablate_traditional_* models served on the card (score of 1024
+           candidates, optimize, per-request score_many) against the CPU
   service  that trained bundle behind PlacementService on the card (default
            policy: double-buffered drains) under the load harness's open-loop
            traffic (16 structures; 4-candidate requests on its metric set, which
@@ -100,7 +110,9 @@ SIZES = {"traces": 4096, "many_batch": 512, "drain_structures": 16, "drain_candi
          "lm_reduced": False, "lm_batch": 4, "lm_prompt": 2048, "lm_decode": 64,
          "svc_structures": 16, "svc_small": 192, "svc_small_cands": 4, "svc_large": 192, "svc_large_cands": 256,
          "svc_estimates": 16, "svc_estimate_graphs": 32, "svc_slo_ms": 250.0, "svc_knee": (0.25, 0.5, 1.0, 2.0, 4.0),
-         "svc_profile_drains": 20, "ctl_queries": 8, "ctl_ticks": 30}
+         "svc_profile_drains": 20, "ctl_queries": 8, "ctl_ticks": 30,
+         "trad_cpu_graphs": 512, "ablation_epochs": 1, "flat_epochs": 4, "extrap_traces": 400, "extrap_epochs": 1,
+         "finetune_traces": 600, "finetune_epochs": 2}
 DEVICE = "cuda"
 
 
@@ -551,6 +563,282 @@ def control_phase(est, cpu, counted, card):
         raise AssertionError(f"control: {len(flips)} re-plan decision(s) differ between the card and the CPU")
     if not out["cold_replays_warm"]:
         raise AssertionError("control: a warm replay on the card changed the decision log")
+
+
+def baselines_phase(corpus, host_batch, query, counted, device_split, timed, check_answers, bank_case, step_split,
+                    card):
+    """The paper's baselines and ablations on the card, in the ``train``
+    phase's artifact root: the traditional-MP forward (kernel against plain
+    and the CPU) and its gradient, launch/train.py's ablations, flat, extrap
+    and finetune stages (validation loss below its value at init for every
+    run), and an ablation bundle served.  Returns the ``banked_mlp`` row of
+    the traditional ``op_upd`` shape for the kernel summary."""
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+
+    from repro_torch import nn
+    from repro_torch.core import gnn
+    from repro_torch.core.flat_vector import FlatVectorConfig, featurize_flat_traces, forward_flat, init_flat_model
+    from repro_torch.core.graph import SLOT_RANGES, JointGraph, batch_banding, batch_graphs, build_graph
+    from repro_torch.core.graph import drop_hardware, drop_hw_features
+    from repro_torch.core.model import (ALL_METRICS, REGRESSION_METRICS, CostModelConfig, bce_loss, ensemble_loss,
+                                        forward_ensemble, init_cost_model, label_array, msle_loss)
+    from repro_torch.launch import artifacts
+    from repro_torch.launch import train as launch_train
+    from repro_torch.placement.enumerate import sample_assignment_matrix
+    from repro_torch.serve.estimator import CostEstimator, graphs_to_device
+    from repro_torch.serve.stacking import _ensemble_vote
+    from repro_torch.training import batching, loop
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    dev = torch.device(DEVICE)
+    E = 3
+    tcfg = CostModelConfig(metric="latency_p", gnn=gnn.GNNConfig(use_pallas=True), n_ensemble=E, traditional_mp=True)
+    pcfg = dc.replace(tcfg, gnn=gnn.GNNConfig(use_pallas=False))
+    costream = ("mp_update", "mp_sweep", "gather_sum", "segment_sum", "linear_scan")
+    out = {"phase": "baselines", "card": card,
+           "model": {"hidden": tcfg.gnn.hidden, "members": E, "n_rounds": 3, "use_pallas": True},
+           "cuts": [f"ablations: {SIZES['ablation_epochs']} epoch(s) a run instead of 16",
+                    f"flat: {SIZES['flat_epochs']} epochs a metric instead of 26",
+                    f"extrap: {SIZES['extrap_traces']} traces a corpus instead of 6,000, "
+                    f"{SIZES['extrap_epochs']} epoch(s) instead of 12",
+                    f"finetune: {SIZES['finetune_traces']} traces instead of 3,000, "
+                    f"{SIZES['finetune_epochs']} epochs instead of 8"]}
+
+    # -- the traditional forward over the serve phase's graphs, kernel against plain
+    params = nn.to_device(init_cost_model(torch.Generator().manual_seed(0), tcfg), dev)
+    g = graphs_to_device(host_batch, dev)
+    B = int(g.op_x.shape[0])
+
+    def forward(cfg, gg=g, p=params):
+        with torch.no_grad():
+            return forward_ensemble(p, gg, cfg)
+
+    (raw_k, ms_first), launches = counted("traditional_forward", lambda: timed(lambda: forward(tcfg)),
+                                          ("banked_mlp",), costream)
+    if launches["banked_mlp"] != 8:
+        raise AssertionError(f"traditional forward: {launches}; want 8 banked_mlp launches")
+    (raw_k2, ms_warm), _ = counted("traditional_forward", lambda: timed(lambda: forward(tcfg)), ("banked_mlp",), costream)
+    raw_p, plain_ms = timed(lambda: forward(pcfg))
+    sub = np.arange(min(SIZES["trad_cpu_graphs"], B))
+    sub_batch = JointGraph(*[np.asarray(x)[sub] for x in host_batch])
+    raw_cpu = forward(pcfg, graphs_to_device(sub_batch, "cpu"), nn.to_device(params, "cpu"))
+    votes = {k: _ensemble_vote(r.cpu().numpy(), tcfg) for k, r in (("kernel", raw_k), ("plain", raw_p))}
+    check_answers("traditional forward, kernel against plain", {"latency_p": votes["kernel"]},
+                  {"latency_p": votes["plain"]}, {})
+    check_answers("traditional forward, card against the CPU", {"latency_p": votes["kernel"][sub]},
+                  {"latency_p": _ensemble_vote(raw_cpu.numpy(), tcfg)}, {})
+    if not torch.equal(raw_k, raw_k2) or tuple(raw_k.shape) != (E, B):
+        raise AssertionError(f"traditional forward: shape {tuple(raw_k.shape)} or two runs on the card differ")
+    out["forward"] = {"graphs": B, "ms_first": ms_first, "ms": ms_warm, "plain_ms": plain_ms, "launches": launches,
+                      "max_abs_raw_diff_plain": float((raw_k - raw_p).abs().max()),
+                      "max_abs_raw_diff_cpu": float((raw_k[:, sub].cpu() - raw_cpu).abs().max()),
+                      "bound": f"rtol {SERVE_RTOL}, atol 1e-6 on the answers", "cpu_graphs": len(sub),
+                      "profile": device_split(lambda: forward(tcfg))}
+    # the banked_mlp launch at op_upd's traditional shape: every op row of every
+    # graph, [h, a_sym h + a_place h_hw] at 2H columns, round 1's real input
+    with torch.no_grad():
+        op_mask, hw_mask = g.op_mask[..., None], g.hw_mask[..., None]
+        h_o = gnn._apply_bank(params["op_enc"], g.op_x.expand(E, *g.op_x.shape), pcfg.gnn) * op_mask
+        h_w = gnn._apply_shared(params["hw_enc"], g.hw_x.expand(E, *g.hw_x.shape), pcfg.gnn, "hw_enc") * hw_mask
+        x_upd = torch.cat([h_o, (g.a_flow + g.a_flow.transpose(-1, -2)) @ h_o + g.a_place @ h_w], dim=-1)
+    row = bank_case(f"op_upd, traditional round, F=128, T=5, {E} members, every op row", params["op_upd"], x_upd,
+                    SLOT_RANGES, False)
+    del raw_k, raw_k2, raw_p, x_upd, h_o, h_w, g
+
+    # -- traditional training: one batch's gradient, the step split --------------------
+    tr, va, _ = batching.split_dataset(batching.dataset_from_traces(corpus, "latency_p"), seed=launch_train.SPLIT_SEED)
+    tr, buckets = batching.bucket_dataset(tr, exact=True)
+    g1, y1, band1 = next(iter(batching.bucketed_batches(tr, buckets, 512, rng=np.random.default_rng(2), device=dev)))
+    (loss_k, grads_k), step_launches = counted("traditional_train_step",
+                                               lambda: loop.loss_and_grads(params, g1, y1, tcfg, band1),
+                                               ("banked_mlp",), costream)
+    loss_p, grads_p = loop.loss_and_grads(params, g1, y1, pcfg, band1)
+    worst, zero = 0.0, []
+    for (path, a), (_, b) in zip(nn.tree_leaves_with_paths(grads_k), nn.tree_leaves_with_paths(grads_p)):
+        if float(a.abs().max()) == 0.0:
+            zero.append("/".join(path))
+        limit = 1e-4 * b.abs() + 1e-5 * float(b.abs().max())
+        worst = max(worst, float(((a - b).abs() / limit.clamp(min=1e-30)).max()))
+    out["gradient_parity"] = {"graphs": int(g1.op_x.shape[0]), "loss": float(loss_k), "loss_plain": float(loss_p),
+                              "leaves": len(nn.tree_leaves(grads_k)), "zero_gradient_leaves": zero,
+                              "worst_leaf_ratio": worst, "launches": step_launches,
+                              "bound": "|kernel - plain| <= 1e-4 |plain| + 1e-5 max|plain leaf|"}
+    if step_launches["banked_mlp"] != 8 or zero or worst > 1.0 or not np.isclose(float(loss_k), float(loss_p),
+                                                                                 rtol=TOL, atol=TOL):
+        emit(out)
+        raise AssertionError(f"traditional gradient: launches {step_launches}, worst {worst}, zero leaves {zero}")
+    out["step"] = {"kernels": step_split(tcfg, params, (g1, y1, band1)),
+                   "plain": step_split(pcfg, params, (g1, y1, band1))}
+    del grads_k, grads_p, g1, y1
+
+    # validation loss at init, as the loop's own init (seed 0) or a given start
+    def val_at_init(graphs, y, cfg, start=None):
+        p = start if start is not None else init_cost_model(torch.Generator().manual_seed(0), cfg)
+        gd, yd = batching.batch_to_device(graphs, y, dev)
+        with torch.no_grad():
+            return float(ensemble_loss(nn.to_device(p, dev), gd, yd, cfg, batch_banding(graphs)) / cfg.n_ensemble)
+
+    def runs_record(results, init_vals, stage):
+        """Each run's record; fails unless every run trained (nothing was
+        stored already) and ended below its validation loss at init."""
+        if any(r is None for r in results.values()):
+            raise AssertionError(f"{stage}: a run found its artifact stored already: {results}")
+        rec = {n: {"steps": r.steps, "val_loss": [h["val_loss"] for h in r.history], "best_val": r.best_val,
+                   "val_at_init": init_vals[n], "seconds": sum(h["seconds"] for h in r.history)}
+               for n, r in results.items()}
+        worse = [n for n, r in results.items() if not r.best_val < init_vals[n]]
+        if worse:
+            emit({**out, stage: rec})
+            raise AssertionError(f"{stage}: validation loss did not fall below its value at init for {worse}")
+        return rec
+
+    def launches_per_forward(results, cfgs):
+        """banked_mlp and mp_sweep launches the runs must make: each step and
+        each validation forward is one forward."""
+        want = {"banked_mlp": 0, "mp_sweep": 0}
+        for n, r in results.items():
+            fwd = r.steps + len(r.history)
+            want["banked_mlp"] += fwd * (8 if cfgs[n].traditional_mp else 4)
+            want["mp_sweep"] += 0 if cfgs[n].traditional_mp else fwd
+        return want
+
+    # -- stage_ablations: Exp 7a (featurization) and Exp 7b (traditional MP) ------------
+    _, val_index, _ = batching.split_indices(len(corpus), seed=launch_train.SPLIT_SEED)
+    va_traces = [corpus[i] for i in val_index]
+    plain_graphs = va.graphs
+    abl_cfgs, abl_init = {}, {}
+    for name, metric, transform, trad in (
+        ("ablate_full_latency_e", "latency_e", None, False),
+        ("ablate_no_hw_nodes_latency_e", "latency_e", drop_hardware, False),
+        ("ablate_no_hw_feats_latency_e", "latency_e", drop_hw_features, False),
+        *((f"ablate_traditional_{m}", m, None, True) for m in REGRESSION_METRICS),
+    ):
+        abl_cfgs[name] = CostModelConfig(metric=metric, gnn=gnn.GNNConfig(use_pallas=True), n_ensemble=E,
+                                         traditional_mp=trad)
+        graphs = plain_graphs if transform is None else transform(plain_graphs)
+        abl_init[name] = val_at_init(graphs, label_array(va_traces, metric), abl_cfgs[name])
+    (abl, abl_s), abl_launches = counted("ablations", lambda: timed(
+        lambda: launch_train.stage_ablations(SIZES["ablation_epochs"], device=DEVICE)), ("banked_mlp", "mp_sweep"),
+        ("mp_update", "gather_sum", "segment_sum", "linear_scan"))
+    out["ablations"] = {"seconds": abl_s / 1e3, "epochs": SIZES["ablation_epochs"], "launches": abl_launches,
+                        "runs": runs_record(abl, abl_init, "ablations")}
+    want = launches_per_forward(abl, abl_cfgs)
+    if {k: abl_launches[k] for k in want} != want:
+        emit(out)
+        raise AssertionError(f"ablations: launches {abl_launches}, want {want}")
+
+    # -- stage_flat: the flat-vector baselines ------------------------------------------
+    x_va = featurize_flat_traces(va_traces)
+    (flat, flat_s), flat_launches = counted("flat", lambda: timed(
+        lambda: launch_train.stage_flat(SIZES["flat_epochs"], device=DEVICE)), (),
+        ("banked_mlp",) + costream)
+    flat_rec, bad = {}, []
+    for m, (fp, seconds) in flat.items():
+        task = "regression" if m in REGRESSION_METRICS else "classification"
+        fcfg = FlatVectorConfig(task=task)
+        base = msle_loss if task == "regression" else bce_loss
+        y_va = torch.as_tensor(label_array(va_traces, m), device=dev)
+        xd = torch.as_tensor(x_va, device=dev)
+        with torch.no_grad():
+            v0 = float(base(forward_flat(nn.to_device(init_flat_model(torch.Generator().manual_seed(0), fcfg), dev),
+                                         xd), y_va))
+            v1 = float(base(forward_flat(nn.to_device(fp, dev), xd), y_va))
+            logits = forward_flat(nn.to_device(fp, dev), xd).cpu().numpy()
+        card_pred = loop.predict_flat(fp, x_va, task, device=DEVICE)
+        cpu_pred = loop.predict_flat(fp, x_va, task, device="cpu")
+        if task == "regression":
+            agree = bool(np.allclose(card_pred, cpu_pred, rtol=1e-5, atol=1e-6))
+        else:
+            clear = np.abs(logits) > 1e-5
+            agree = bool(np.array_equal(card_pred[clear], cpu_pred[clear]))
+        flat_rec[m] = {"seconds": seconds, "val_at_init": v0, "val_loss": v1, "predict_card_equals_cpu": agree,
+                       "max_abs_diff": float(np.max(np.abs(card_pred.astype(np.float64) - cpu_pred)))}
+        if not (agree and v1 < v0):
+            bad.append(m)
+    out["flat"] = {"seconds": flat_s / 1e3, "epochs": SIZES["flat_epochs"], "val_rows": len(va_traces),
+                   "launches": flat_launches, "per_metric": flat_rec}
+    if bad:
+        emit(out)
+        raise AssertionError(f"flat: prediction on the card differs from the CPU, or validation loss did not fall: {bad}")
+
+    # -- stage_extrap: restricted-range retrains, one member a metric ---------------------
+    launch_train.EXTRAP_CORPUS = SIZES["extrap_traces"]
+    (ext, ext_s), ext_launches = counted("extrap", lambda: timed(
+        lambda: launch_train.stage_extrap(SIZES["extrap_epochs"], device=DEVICE)), ("banked_mlp", "mp_sweep"),
+        ("mp_update", "gather_sum", "segment_sum", "linear_scan"))
+    ext_cfgs, ext_init = {}, {}
+    for direction in ("stronger", "weaker"):
+        for dim in ("ram", "cpu", "bandwidth", "latency"):
+            traces = launch_train.corpus_cache(f"extrap_{direction}_{dim}", None)  # built by the stage
+            _, vi, _ = batching.split_indices(len(traces), seed=launch_train.SPLIT_SEED)
+            vt = [traces[i] for i in vi]
+            graphs = batch_graphs([build_graph(t.query, t.cluster, t.placement) for t in vt])
+            for m in ALL_METRICS:
+                name = f"extrap_{direction}_{dim}_{m}"
+                ext_cfgs[name] = CostModelConfig(metric=m, gnn=gnn.GNNConfig(use_pallas=True), n_ensemble=1)
+                ext_init[name] = val_at_init(graphs, label_array(vt, m), ext_cfgs[name])
+    out["extrap"] = {"seconds": ext_s / 1e3, "corpus_traces": SIZES["extrap_traces"], "epochs": SIZES["extrap_epochs"],
+                     "launches": ext_launches, "runs": runs_record(ext, ext_init, "extrap")}
+    want = launches_per_forward(ext, ext_cfgs)
+    if {k: ext_launches[k] for k in want} != want:
+        emit(out)
+        raise AssertionError(f"extrap: launches {ext_launches}, want {want}")
+
+    # -- stage_finetune: main_throughput on the filter-chain corpus ---------------------------
+    launch_train.FINETUNE_N = SIZES["finetune_traces"]
+    base_params, base_cfg = artifacts.load_cost_model("main_throughput")
+    (ft, ft_s), ft_launches = counted("finetune", lambda: timed(
+        lambda: launch_train.stage_finetune(SIZES["finetune_epochs"], device=DEVICE)), ("banked_mlp", "mp_sweep"),
+        ("mp_update", "gather_sum", "segment_sum", "linear_scan"))
+    chains = launch_train.finetune_corpus()
+    _, vi, _ = batching.split_indices(len(chains), (0.9, 0.1, 0.0), seed=launch_train.SPLIT_SEED)
+    vt = [chains[i] for i in vi]
+    ft_init = val_at_init(batch_graphs([build_graph(t.query, t.cluster, t.placement) for t in vt]),
+                          label_array(vt, "throughput"), base_cfg, start=base_params)
+    with open(Path(artifacts.path("costream", "finetune_throughput", "step_0000000000", "manifest.json"))) as f:
+        ft_extra = json.load(f)["extra"]
+    out["finetune"] = {"seconds": ft_s / 1e3, "traces": len(chains), "epochs": SIZES["finetune_epochs"],
+                       "launches": ft_launches, "finetuned_from": ft_extra.get("finetuned_from"),
+                       "runs": runs_record({"finetune_throughput": ft}, {"finetune_throughput": ft_init}, "finetune")}
+    if ft_extra.get("finetuned_from") != "main_throughput":
+        raise AssertionError(f"finetune: stored extra {ft_extra}")
+
+    # -- the ablation bundle served on the card against the CPU ---------------------------
+    models = {m: artifacts.load_cost_model(f"ablate_traditional_{m}") for m in REGRESSION_METRICS}
+    est, cpu = CostEstimator(models, device=DEVICE), CostEstimator(models, device="cpu")
+    q, c = query
+    a = sample_assignment_matrix(q, c, SIZES["score_candidates"], np.random.default_rng(7))
+    (got, score_ms), score_launches = counted("ablation_score", lambda: timed(lambda: est.score(q, c, a)),
+                                              ("banked_mlp",), costream)
+    check_answers("ablation bundle score", got, cpu.score(q, c, a), {})
+    (r, opt_ms), _ = counted("ablation_optimize", lambda: timed(
+        lambda: est.optimize(q, c, "latency_p", k=64, rng=np.random.default_rng(3))), ("banked_mlp",), costream)
+    r_cpu = cpu.optimize(q, c, "latency_p", k=64, rng=np.random.default_rng(3))
+    if r.placement.assignment != r_cpu.placement.assignment:
+        j = [p.assignment for p in r_cpu.candidates].index(r.placement.assignment)
+        if not np.isclose(r_cpu.scores[j], r_cpu.predicted["latency_p"], rtol=SERVE_RTOL):
+            raise AssertionError("ablation bundle optimize: the card picked a worse placement than the CPU")
+    reqs = [(q, c, a[: len(a) // 2]), (q, c, a[len(a) // 2 :])]
+    many = est.score_many(reqs)
+    for i, (rq, ans) in enumerate(zip(reqs, many)):
+        for m, v in est.score(*rq).items():
+            if not np.array_equal(ans[m], v):
+                raise AssertionError(f"ablation bundle score_many request {i} {m}: differs from its own score")
+    if est.supports_cross_query() or est._merged_groups:
+        raise AssertionError("ablation bundle: a traditional bundle must answer per request")
+    out["serve"] = {"metrics": list(models), "members": sum(p[1].n_ensemble for p in models.values()),
+                    "score": {"candidates": len(a), "ms": score_ms, "launches": score_launches},
+                    "optimize": {"k": 64, "ms": opt_ms, "same_placement_as_cpu":
+                                 r.placement.assignment == r_cpu.placement.assignment},
+                    "score_many_per_request": True, "supports_cross_query": False}
+    out["max_memory_allocated_bytes"] = int(torch.cuda.max_memory_allocated())
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    return row
 
 
 def main() -> int:
@@ -1208,8 +1496,9 @@ def main() -> int:
 
     # one step split into forward, backward and optimizer (host clock, synchronized
     # between the parts), the kernels' path and the plain path
-    def step_split(cfg, reps=SIZES["timing_reps"]):
-        p, state = params0, opt.init(params0)
+    def step_split(cfg, p0, batch, reps=SIZES["timing_reps"]):
+        g1, y1, band1 = batch
+        p, state = p0, opt.init(p0)
         parts = []
         for _ in range(reps + 3):
             torch.cuda.synchronize()
@@ -1239,7 +1528,7 @@ def main() -> int:
             losses.append(loss)
         return [float(v) for v in losses]
 
-    split_k, split_p = step_split(tcfg), step_split(pcfg)
+    split_k, split_p = step_split(tcfg, params0, (g1, y1, band1)), step_split(pcfg, params0, (g1, y1, band1))
     reps = [(g1, y1, band1)] * SIZES["timing_reps"]
     _, step_ms = timed(lambda: train_steps(tcfg, reps))
     _, plain_step_ms = timed(lambda: train_steps(pcfg, reps))
@@ -1315,10 +1604,17 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
-    # -- 5. service and 6. control: the trained bundle behind PlacementService
-    # and the fleet controller ------------------------------------------------
+    # -- 5. baselines: the traditional-MP GNN, the flat vector, the other training
+    # stages, in the train phase's artifact root ------------------------------------
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+    rows.append(baselines_phase(corpus, host_batch, queries[2], counted, device_split, timed, check_answers, bank_case,
+                                step_split, card))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # -- 6. service and 7. control: the trained bundle behind PlacementService
+    # and the fleet controller ------------------------------------------------
     svc_est, svc_cpu = service_phase(bundle, lambda: artifacts.load_bundle("main"), counted, device_split, card)
     control_phase(svc_est, svc_cpu, counted, card)
     shutil.rmtree(train_root, ignore_errors=True)
@@ -1326,7 +1622,7 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
-    # -- 7. lm: RecurrentGemma-2B serving through make_serve_step -----------------
+    # -- 8. lm: RecurrentGemma-2B serving through make_serve_step -----------------
     costream = ("banked_mlp", "mp_update", "mp_sweep", "gather_sum", "segment_sum")
     n_rec = sum(k == "rec" for k in lm_cfg.pattern) * lm_cfg.n_groups + sum(k == "rec" for k in lm_cfg.suffix)
     prompt, n_dec = SIZES["lm_prompt"], SIZES["lm_decode"]
@@ -1435,7 +1731,7 @@ def main() -> int:
         raise AssertionError(f"lm: the reduced model on the card disagrees with the CPU "
                              f"(max abs err {max_diff(pairs)})")
 
-    # -- 8. kernel summary (the representative case: the most work on the path) -------
+    # -- 9. kernel summary (the representative case: the most work on the path) -------
     sources = {
         "banked_mlp": ("src/repro_torch/csrc/banked_mlp.cu", "src/repro/kernels/banked_mlp/kernel.py:53"),
         "mp_update": ("src/repro_torch/csrc/mp_update.cu", "src/repro/kernels/mp_update/kernel.py:64"),
@@ -1460,7 +1756,7 @@ def main() -> int:
                         "backward_launches_per_train_step": backward[name]["launches_per_step"] if name in backward else 0})
     emit({"kernels": summary})
 
-    # -- 9. the card, 10. status ---------------------------------------------------
+    # -- 10. the card, 11. status ---------------------------------------------------
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -23,6 +23,8 @@ stage-3 sweep through ``kernels/mp_update`` (``scan``, ``exact``) or
 ``kernels/mp_sweep`` (``sweep``), exactly where the JAX package routes them
 through its Pallas kernels; configs the kernels cannot fuse raise.  ``False``
 runs the plain PyTorch formulation of the JAX package's jnp branch.  The
+Exp-7b ablation ``apply_gnn_traditional`` runs all its MLPs through
+``kernels/banked_mlp`` under ``use_pallas``.  The
 cross-query merged engine (``apply_gnn_merged``) runs its aggregations
 through ``kernels/seg_gather`` whatever ``use_pallas`` says, as in JAX.
 """
@@ -632,8 +634,48 @@ def apply_gnn_placed_stacked(
     return fwd(a_place)
 
 
-def apply_gnn_traditional(*args, **kwargs):
-    raise NotImplementedError(
-        "apply_gnn_traditional (the Exp-7b ablation) is not ported yet: "
-        "ROADMAP.md queue 1, item 8."
-    )
+# ---------------------------------------------------------------------------
+# Exp 7b ablation: "traditional" message passing — every node is updated from
+# all of its neighbors each round, regardless of node type and stage ordering.
+# ---------------------------------------------------------------------------
+
+
+def apply_gnn_traditional(
+    params: nn.Params, g: JointGraph, cfg: GNNConfig, n_rounds: int = 3
+) -> torch.Tensor:
+    """Member-stacked traditional-MP forward -> ``(E, B, n_outputs)``.
+
+    The port of ``repro/core/gnn.py:apply_gnn_traditional``: ``n_rounds``
+    rounds in which every operator absorbs its data-flow neighbours (both
+    directions, ``a_flow + a_flowᵀ``) and its host, and every host its
+    operators, each through its update MLP, with the masks applied after
+    every MLP; then sum pooling over the real rows and the readout.  The JAX
+    package runs it per member and per graph under ``jax.vmap``; here the
+    member axis ``E`` of ``params`` and the batch axis of ``g`` ride one call
+    per MLP stage, so under ``use_pallas`` a forward is 2 + 2 ``n_rounds``
+    ``banked_mlp`` launches whatever E and B are.  A single ``(N, .)`` graph
+    gives ``(E, n_outputs)``.
+    """
+    single = g.op_x.ndim == 2
+    if single:
+        g = JointGraph(*[x.unsqueeze(0) for x in g])
+    E = _n_members(params)
+    op_mask = g.op_mask[..., None]  # (B, O, 1)
+    hw_mask = g.hw_mask[..., None]  # (B, W, 1)
+
+    h_o = _apply_bank(params["op_enc"], g.op_x.expand(E, *g.op_x.shape), cfg) * op_mask
+    h_w = _apply_shared(params["hw_enc"], g.hw_x.expand(E, *g.hw_x.shape), cfg, "hw_enc") * hw_mask
+
+    # symmetric adjacency: data flow (both directions) + placement (both ways)
+    a_sym = g.a_flow + g.a_flow.transpose(-1, -2)  # (B, O, O)
+    a_place_t = g.a_place.transpose(-1, -2)  # (B, W, O)
+    for _ in range(n_rounds):
+        msg_o = a_sym @ h_o + g.a_place @ h_w  # (E, B, O, H)
+        msg_w = a_place_t @ h_o  # (E, B, W, H)
+        h_o, h_w = (
+            _apply_bank(params["op_upd"], torch.cat([h_o, msg_o], dim=-1), cfg) * op_mask,
+            _apply_shared(params["hw_upd"], torch.cat([h_w, msg_w], dim=-1), cfg, "hw_upd") * hw_mask,
+        )
+    pooled = torch.sum(h_o * op_mask, dim=-2) + torch.sum(h_w * hw_mask, dim=-2)
+    out = nn.apply_mlp(params["out"], pooled)
+    return out[:, 0] if single else out

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch import nn
-from repro_torch.core.gnn import GNNConfig, apply_gnn_stacked, init_gnn
+from repro_torch.core.gnn import GNNConfig, apply_gnn_stacked, apply_gnn_traditional, init_gnn
 from repro_torch.core.graph import BatchBanding, JointGraph
 
 REGRESSION_METRICS = ("throughput", "latency_p", "latency_e")
@@ -56,13 +56,13 @@ def forward_ensemble(
     """(E-stacked params, batch of graphs) -> raw outputs (E, B).
 
     Raw output is log1p(cost) for regression, a logit for classification.
-    One stacked engine forward evaluates every member.
+    One stacked engine forward evaluates every member; ``banding`` is the
+    bucket's static stage-3 plan (None: the full-depth scan).  The
+    ``traditional_mp`` ablation has no stage 3 and ignores ``banding``, as in
+    the JAX package; its forward also takes every member at once.
     """
     if cfg.traditional_mp:
-        raise NotImplementedError(
-            "traditional_mp models (the Exp-7b ablation) are not ported yet: "
-            "ROADMAP.md queue 1, item 8."
-        )
+        return apply_gnn_traditional(params, g, cfg.gnn)[..., 0]
     return apply_gnn_stacked(params, g, cfg.gnn, banding)
 
 

@@ -53,9 +53,11 @@ from repro_torch.core.graph import (
     bucket_size,
     build_a_place_batch,
     build_graph,
+    build_graph_batch,
     build_graph_skeleton,
     exact_banding_cached,
     merge_graph_batches,
+    pad_batch,
     query_static,
     skeleton_cache_key,
 )
@@ -394,13 +396,24 @@ class CostEstimator:
         The skeleton, its device copy and the ``QueryStatic`` come from the
         LRU (at most ONE skeleton build per pair), and every scored batch is
         one fused stacked forward.  ``deferred`` makes the closure return a
-        ``DeferredResult``.
+        ``DeferredResult``.  ``traditional_mp`` models lack the 3-stage
+        structure the placed forward exploits: they score the full broadcast
+        batch through ``estimate``.
         """
         metrics = tuple(metrics)
         if any(self.models[m][1].traditional_mp for m in metrics):
-            raise NotImplementedError(
-                "scoring traditional_mp models is not ported yet: ROADMAP.md queue 1, item 8"
-            )
+
+            def score_generic(assignments: np.ndarray) -> Dict[str, np.ndarray]:
+                n = len(assignments)
+                if n == 0:
+                    raise ValueError("no candidates to score")
+                graphs = pad_batch(build_graph_batch(query, cluster, assignments), bucket_size(n))
+                # hooks and the finiteness guard fire inside the delegated
+                # ``estimate`` (kind "estimate"), not a second time here
+                pending = self.estimate(graphs, metrics, deferred=True)
+                return _maybe_defer(lambda: {m: v[:n] for m, v in pending.result().items()}, deferred)
+
+            return score_generic
         host, skel, static = self._skeleton_entry(query, cluster)
         n_hw = int(host.hw_mask.sum())
         stacked = self._stacked_for(metrics)

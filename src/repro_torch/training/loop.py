@@ -16,10 +16,13 @@ plain PyTorch path).  With ``GNNConfig.use_pallas`` the forward launches the
 CUDA kernels and their ``autograd.Function`` backwards run the plain
 versions' VJPs.  Params start from ``init_params`` (for example JAX-made
 params converted with ``nn.params_from_numpy``) or from a
-``torch.Generator`` seeded with ``seed``.
+``torch.Generator`` seeded with ``seed``.  ``traditional_mp`` configs (the
+Exp-7b ablation) take the same bucketed, banded loop; their forward ignores
+the banding, as in the JAX package.
 
-The flat-vector baseline (``train_flat_model``, ``predict_flat``) is not
-ported yet (ROADMAP.md queue 1, item 8).
+``train_flat_model`` / ``predict_flat`` are the flat-vector baseline's loop
+and inference: Adam(W) on the same schedule, MSLE or BCE, the batch order
+from ``default_rng(seed)``.
 """
 
 from __future__ import annotations
@@ -32,8 +35,9 @@ import numpy as np
 import torch
 
 from repro_torch import nn
+from repro_torch.core.flat_vector import FlatVectorConfig, forward_flat, init_flat_model
 from repro_torch.core.graph import batch_banding
-from repro_torch.core.model import CostModelConfig, ensemble_loss, init_cost_model
+from repro_torch.core.model import CostModelConfig, bce_loss, ensemble_loss, init_cost_model, msle_loss
 from repro_torch.training import optim
 from repro_torch.training.batching import (
     GraphDataset,
@@ -206,13 +210,68 @@ def train_cost_model(
 # -- flat-vector baseline ---------------------------------------------------------------
 
 
-def train_flat_model(*args, **kwargs):
-    raise NotImplementedError(
-        "train_flat_model (the flat-vector baseline) is not ported yet: ROADMAP.md queue 1, item 8."
+def train_flat_model(
+    x_train: np.ndarray,
+    y_train: np.ndarray,
+    x_val: np.ndarray,
+    y_val: np.ndarray,
+    cfg: FlatVectorConfig,
+    train_cfg: TrainConfig = TrainConfig(),
+    device=None,
+):
+    """Train the flat-vector MLP; returns the best params (CPU tensors).
+
+    Adam(W) on the cosine schedule with warmup ``min(100, total // 10)`` over
+    ``len(x_train) // batch_size`` steps an epoch, MSLE (regression) or BCE
+    (classification), the batch order from ``default_rng(seed)``, batches of
+    fewer than 2 rows skipped, early stopping on the validation loss with a
+    host copy of the best params.  Runs on ``device`` (default: the GPU).
+    """
+    device = nn.resolve_device(device, "train_flat_model")
+    params = nn.to_device(init_flat_model(torch.Generator().manual_seed(train_cfg.seed), cfg), device)
+    steps_per_epoch = max(1, len(x_train) // train_cfg.batch_size)
+    opt = make_optimizer(train_cfg, steps_per_epoch * train_cfg.epochs)
+    opt_state = opt.init(params)
+    base_loss = msle_loss if cfg.task == "regression" else bce_loss
+    x_tr, y_tr, x_va, y_va = nn.arrays_to_device(
+        [np.asarray(a, dtype=np.float32) for a in (x_train, y_train, x_val, y_val)], device
     )
+    rng = np.random.default_rng(train_cfg.seed)
+    best_val, best_params, bad = float("inf"), _host_copy(params), 0
+    for _ in range(train_cfg.epochs):
+        order = rng.permutation(len(x_train))
+        for s in range(0, len(order), train_cfg.batch_size):
+            idx = order[s : s + train_cfg.batch_size]
+            if idx.size < 2:
+                continue
+            (i,) = nn.arrays_to_device([idx], device)
+            live = nn.tree_map(lambda p: p.detach().requires_grad_(), params)
+            loss = base_loss(forward_flat(live, x_tr[i]), y_tr[i])
+            grads = iter(torch.autograd.grad(loss, [p for _, p in nn.tree_leaves_with_paths(live)]))
+            updates, opt_state = opt.update(nn.tree_map(lambda _: next(grads), params), opt_state, params)
+            params = optim.apply_updates(params, updates)
+        if len(x_val):
+            with torch.no_grad():
+                vl = float(base_loss(forward_flat(params, x_va), y_va))
+        else:
+            vl = float("nan")
+        if vl < best_val - 1e-4:
+            best_val, best_params, bad = vl, _host_copy(params), 0
+        else:
+            bad += 1
+            if bad >= train_cfg.early_stop_patience:
+                break
+    return best_params
 
 
-def predict_flat(*args, **kwargs):
-    raise NotImplementedError(
-        "predict_flat (the flat-vector baseline) is not ported yet: ROADMAP.md queue 1, item 8."
-    )
+def predict_flat(params, x: np.ndarray, task: str, device=None) -> np.ndarray:
+    """Cost-space predictions (regression) or 0/1 votes (classification) of
+    the flat-vector MLP for ``x`` (N, FLAT_DIM), computed on ``device``
+    (default: the GPU)."""
+    device = nn.resolve_device(device, "predict_flat")
+    (xd,) = nn.arrays_to_device([np.asarray(x, dtype=np.float32)], device)
+    with torch.no_grad():
+        raw = forward_flat(nn.to_device(params, device), xd).cpu().numpy()
+    if task == "regression":
+        return np.expm1(raw).clip(min=0.0)
+    return (raw > 0).astype(np.int64)

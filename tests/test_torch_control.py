@@ -41,6 +41,8 @@ METRICS = ("latency_e", "success", "backpressure")
 # -- pinned copies ------------------------------------------------------------------
 
 PINNED = [
+    "placement/baselines.py",
+    "dsps/benchmarks.py",
     "serve/chaos.py",
     "launch/faults.py",
     "control/__init__.py",

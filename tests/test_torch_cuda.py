@@ -8,7 +8,8 @@ RecurrentGemma-2B's prefill and decode shapes) at ``rtol=atol=1e-5``; the
 estimator and the reduced LM on the card against the same on the CPU.  Each
 kernel's ``autograd.Function`` is held against autograd of the plain version
 at the training shape (3 members, a batch of 512, hidden 64), and a cost
-model under ``use_pallas=True`` against the plain path.
+model under ``use_pallas=True`` against the plain path, the 3-stage engine
+and the Exp-7b traditional forward both.
 """
 
 import dataclasses
@@ -22,7 +23,7 @@ from repro_torch import nn
 from repro_torch.core import gnn
 from repro_torch.core.gnn import GNNConfig
 from repro_torch.core.graph import SLOT_RANGES, batch_graphs, build_graph, exact_banding
-from repro_torch.core.model import ALL_METRICS, REGRESSION_METRICS, CostModelConfig, init_cost_model
+from repro_torch.core.model import ALL_METRICS, REGRESSION_METRICS, CostModelConfig, forward_ensemble, init_cost_model
 from repro_torch.training import batching, loop
 from repro_torch.dsps import WorkloadGenerator
 from repro_torch.kernels.banked_mlp import ops as bank_ops
@@ -587,6 +588,56 @@ def test_cost_model_gradient_through_kernels_matches_plain(cuda, metric):
     before = (bank_ops.banked_mlp_slotted.launches, sweep_ops.mp_sweep.launches)
     loss, grads = loop.loss_and_grads(params, g, y, cfg, band)
     assert (bank_ops.banked_mlp_slotted.launches - before[0], sweep_ops.mp_sweep.launches - before[1]) == (4, 1)
+    want_loss, want = loop.loss_and_grads(params, g, y, plain, band)
+    torch.testing.assert_close(loss, want_loss, **TOL)
+    for (path, a), (_, b) in zip(nn.tree_leaves_with_paths(grads), nn.tree_leaves_with_paths(want)):
+        assert float(a.abs().max()) > 0, path
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5 * float(b.abs().max()), msg=str(path))
+
+
+def _traditional_batch(metric, device, n=700, seed=8):
+    """One exact-banded batch of 512 corpus graphs for ``metric``."""
+    traces = WorkloadGenerator(seed=seed).corpus(n)
+    ds, buckets = batching.bucket_dataset(batching.dataset_from_traces(traces, metric), exact=True)
+    return next(iter(batching.bucketed_batches(ds, buckets, 512, rng=np.random.default_rng(0), device=device)))
+
+
+@pytest.mark.gpu
+def test_traditional_forward_through_kernels_matches_plain(cuda):
+    """The Exp-7b forward of 3 members over 512 corpus graphs: 8
+    ``banked_mlp`` launches and no other kernel, within 1e-5 of the plain
+    path, two runs bitwise equal."""
+    g, _, _ = _traditional_batch("latency_p", cuda)
+    cfg = CostModelConfig(metric="latency_p", gnn=GNNConfig(use_pallas=True), traditional_mp=True)
+    plain = dataclasses.replace(cfg, gnn=GNNConfig(use_pallas=False))
+    params = nn.to_device(init_cost_model(torch.Generator().manual_seed(0), cfg), cuda)
+    wrappers = (bank_ops.banked_mlp_slotted, mp_ops.mp_update, sweep_ops.mp_sweep, seg_ops.gather_sum,
+                seg_ops.segment_sum)
+    before = [w.launches for w in wrappers]
+    with torch.no_grad():
+        got = forward_ensemble(params, g, cfg)
+        again = forward_ensemble(params, g, cfg)
+        want = forward_ensemble(params, g, plain)
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [16, 0, 0, 0, 0]
+    assert got.shape == (3, int(g.op_x.shape[0]))
+    torch.testing.assert_close(got, want, **TOL)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", ["latency_p", "success"])
+def test_traditional_gradient_through_kernels_matches_plain(cuda, metric):
+    """Every leaf of a traditional ensemble gets a non-zero gradient through
+    the 8 ``banked_mlp`` launches, each within rtol 1e-4 plus 1e-5 x its
+    largest entry of the plain path's (the bound of
+    ``test_cost_model_gradient_through_kernels_matches_plain``)."""
+    g, y, band = _traditional_batch(metric, cuda)
+    cfg = CostModelConfig(metric=metric, gnn=GNNConfig(use_pallas=True), traditional_mp=True)
+    plain = dataclasses.replace(cfg, gnn=GNNConfig(use_pallas=False))
+    params = nn.to_device(init_cost_model(torch.Generator().manual_seed(0), cfg), cuda)
+    before = (bank_ops.banked_mlp_slotted.launches, sweep_ops.mp_sweep.launches)
+    loss, grads = loop.loss_and_grads(params, g, y, cfg, band)
+    assert (bank_ops.banked_mlp_slotted.launches - before[0], sweep_ops.mp_sweep.launches - before[1]) == (8, 0)
     want_loss, want = loop.loss_and_grads(params, g, y, plain, band)
     torch.testing.assert_close(loss, want_loss, **TOL)
     for (path, a), (_, b) in zip(nn.tree_leaves_with_paths(grads), nn.tree_leaves_with_paths(want)):

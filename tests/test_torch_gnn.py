@@ -163,19 +163,11 @@ def test_apply_gnn_placed_stacked_matches_jax(use_pallas, lowering, chunk, monke
 
 
 def test_unported_paths_raise_naming_the_roadmap():
-    """What the port still lacks raises, naming the ROADMAP item: the
-    traditional-MP ablation; a 3-layer update bank under ``use_pallas``
-    raises on every plan (scan, and the banded fallback of a banding)."""
-    from repro_torch.core.model import forward_ensemble
-
+    """What the kernels cannot fuse raises: a 3-layer update bank under
+    ``use_pallas`` raises on every plan (scan, and the banded fallback of a
+    banding)."""
     traces = WorkloadGenerator(seed=3).corpus(4)
     g = graph.batch_graphs([graph.build_graph(t.query, t.cluster, t.placement) for t in traces])
-    params = nn.params_from_numpy(_jax_params())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        gnn.apply_gnn_traditional(params, _as_torch(g), gnn.GNNConfig(hidden=16))
-    ablation = CostModelConfig(gnn=gnn.GNNConfig(hidden=16), n_ensemble=1, traditional_mp=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        forward_ensemble(nn.members(params), _as_torch(g), ablation)
     deep = gnn.GNNConfig(hidden=16, update_layers=3, use_pallas=True)
     deep_params = init_cost_model(torch.Generator().manual_seed(0), CostModelConfig(gnn=deep, n_ensemble=1))
     with pytest.raises(NotImplementedError, match="exactly two"):

@@ -586,7 +586,7 @@ def test_bundles_cross_between_packages(trained, tmp_path):
 def test_launch_train_stage_main_exports_a_bundle_both_packages_serve(tmp_path, monkeypatch):
     """``stage_main`` on a 30-trace corpus, one epoch a metric, on the CPU:
     five stored ensembles and the bundle ``main``, which the JAX package
-    loads; the other stages raise naming the roadmap item."""
+    loads."""
     monkeypatch.setattr(artifacts, "ROOT", str(tmp_path))
     monkeypatch.setattr(launch_train, "MAIN_CORPUS", 30)
     results = launch_train.stage_main(1, device="cpu")
@@ -601,7 +601,3 @@ def test_launch_train_stage_main_exports_a_bundle_both_packages_serve(tmp_path, 
     assert theirs.config("latency_p").gnn.use_pallas
     params, cfg = artifacts.load_cost_model("main_latency_p")
     _assert_trees_close(params, theirs.params("latency_p"), rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        launch_train.main(["--stage", "flat"])
-    with pytest.raises(NotImplementedError, match="item 8"):
-        loop.train_flat_model()
