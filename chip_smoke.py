@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, service and training paths on one CUDA card and check them.
+"""Drive the PyTorch port's serving, service, training and LM paths on one CUDA card and check them.
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -27,6 +27,12 @@ Each phase prints one JSON line:
            profiled step, 20 steps with the kernels and with the plain path,
            validation loss below its value at init for every metric, and the
            exported bundle served on the card against the trained params
+  distributed the distribution substrate on one NCCL rank of the card (file://
+           rendezvous): make_dp_train_step on the train phase's batch against
+           training/loop.py's train_step (parameters bitwise equal), 20
+           int8-compressed steps whose loss must fall, the all-reduce of every
+           gradient leaf timed, pipeline_forward at one stage against its stage,
+           the train phase's stored model re-sharded onto the card
   baselines the paper's baselines and ablations in the train phase's artifact root
            (hidden 64, 3 members): the traditional-MP forward over the serve phase's
            4096 graphs (8 banked_mlp launches and no other kernel; kernel against
@@ -61,6 +67,14 @@ Each phase prints one JSON line:
            with the plain scan on the card (logits against a stated bound); the
            reduced model in fp32 on the card against the CPU; prefill and
            decode times, the device split and peak memory
+  lm_train the lm phase's weights trained through make_train_step (2 x 2048 seeded
+           tokens, remat "full", Adam with float32 moments): a warm step whose
+           linear_scan launches are counted (18 forward, 16 recomputed in the
+           remat'd groups, 18 reversed scans in the backward), 5 steps split into
+           forward, backward and optimizer whose loss must fall and grad norm stay
+           finite, peak memory; the step's loss and grad norm with the plain scan
+           against the kernel; the scan's backward at (2, 2048, 2560) against the
+           plain VJP within 1e-5 x max|plain|, both timed
 then the kernel summary line, the card's name and power limit, and the status
 line.  Any failure exits nonzero; so does a machine without a CUDA device, or
 a directory that holds this script and nothing else of the repository.
@@ -69,11 +83,13 @@ a directory that holds this script and nothing else of the repository.
 import dataclasses
 import itertools
 import json
+import os
 import shutil
 import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -92,6 +108,16 @@ LM_RTOL = 1e-4  # reduced LM in fp32, card against CPU (TF32 off)
 # bitwise, and the bf16 layers after it may round a value the other way; the
 # bound allows one bf16 rounding (2**-8 relative) of the largest logit.
 LM_SCAN_REL = 2.0**-8
+# The lm_train phase holds one step's loss and grad norm with the kernel against
+# the plain scan by the same bound.  On the CPU in float32 the port's step
+# agrees with the JAX package's within 1e-6 relative (loss and grad norm,
+# tests/test_torch_lm_train.py), so the float32 algorithm adds nothing
+# measurable; what the card adds is the bf16 model: the scans agree within
+# TOL, and each layer rounds h to bf16 before its output projection, so a value
+# may land one bf16 ulp (2**-8 relative) the other way.  The loss and the grad
+# norm are means and norms over millions of such terms, so they differ by far
+# less than one ulp of their own; 2**-8 is the loosest bound that still fails on
+# a wrong gradient or a wrong launch.
 # The train phase runs the same first steps of an epoch with the kernels and
 # with the plain path from one start.  A step's loss first differs by the
 # kernels' forward error (at most 2.6e-6 on states of order one, about 1e-6 of
@@ -112,7 +138,8 @@ SIZES = {"traces": 4096, "many_batch": 512, "drain_structures": 16, "drain_candi
          "svc_estimates": 16, "svc_estimate_graphs": 32, "svc_slo_ms": 250.0, "svc_knee": (0.25, 0.5, 1.0, 2.0, 4.0),
          "svc_profile_drains": 20, "ctl_queries": 8, "ctl_ticks": 30,
          "trad_cpu_graphs": 512, "ablation_epochs": 1, "flat_epochs": 4, "extrap_traces": 400, "extrap_epochs": 1,
-         "finetune_traces": 600, "finetune_epochs": 2}
+         "finetune_traces": 600, "finetune_epochs": 2, "lm_train_batch": 2, "lm_train_steps": 5,
+         "dp_int8_steps": 20}
 DEVICE = "cuda"
 
 
@@ -841,7 +868,265 @@ def baselines_phase(corpus, host_batch, query, counted, device_split, timed, che
     return row
 
 
+def distributed_phase(params0, batch, cfg, opt, loop_cfg, counted, cuda_ms, timed, card):
+    """The distribution substrate on one rank of the card: ``torch.distributed``
+    with NCCL (gloo for a CPU dry run), world size 1, rendezvous through a
+    ``file://`` store in a temporary directory.  One card gives one rank
+    (NCCL takes one rank a GPU), so the several-rank paths are held on gloo
+    CPU groups by ``tests/test_torch_distributed.py``.  The data-parallel
+    step against ``training/loop.py:train_step`` on the train phase's batch,
+    with the same optimizer (parameters bitwise equal: a one-rank all-reduce
+    is the identity, the division by 1 exact); 20 int8-compressed steps,
+    whose loss must fall; the all-reduce of every gradient leaf, timed; the
+    pipeline at one stage against its stage; the train phase's checkpoint
+    re-sharded onto the card, equal to what was stored."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import nn
+    from repro_torch.core.model import ensemble_loss
+    from repro_torch.distributed import make_dp_train_step, pipeline_forward
+    from repro_torch.launch import artifacts
+    from repro_torch.training import elastic, loop, optim
+    from repro_torch.training.compression import ef_init
+
+    t_phase = time.perf_counter()
+    costream_step = ("banked_mlp", "mp_sweep")
+    not_in_step = ("mp_update", "gather_sum", "segment_sum", "linear_scan")
+    g1, y1, band1 = batch
+    store = Path(tempfile.mkdtemp(prefix="dist_smoke_", dir=ROOT / "build"))
+    backend = "nccl" if DEVICE == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method=f"file://{store / 'store'}", rank=0, world_size=1)
+    out = {"phase": "distributed", "card": card, "backend": backend, "world_size": dist.get_world_size(),
+           "batch_graphs": int(g1.op_x.shape[0])}
+
+    def loss_fn(p, b):
+        return ensemble_loss(p, b[0], b[1], cfg, band1)
+
+    def fresh(o):
+        return {"params": params0, "opt": o.init(params0), "step": 0}
+
+    # the DP step against the loop's step, one batch, the same optimizer
+    dp_step = make_dp_train_step(loss_fn, opt)
+    (dp_out, dp_ms), got = counted("dp_step", lambda: timed(lambda: dp_step(fresh(opt), (g1, y1), 0)),
+                                   costream_step, not_in_step)
+    want, _, _, want_loss = loop.train_step(params0, opt.init(params0), ef_init(params0), g1, y1, band1, cfg, opt,
+                                            loop_cfg)
+    pairs = list(zip(nn.tree_leaves(dp_out[0]["params"]), nn.tree_leaves(want)))
+    out["dp_vs_train_step"] = {"leaves": len(pairs), "bitwise_equal": all(torch.equal(a, b) for a, b in pairs),
+                               "max_abs_diff": max(float((a - b).abs().max()) for a, b in pairs),
+                               "loss": float(dp_out[1]["loss"]), "loss_train_step": float(want_loss),
+                               "bound": "bitwise", "step_ms_first": dp_ms, "launches": got}
+    if not out["dp_vs_train_step"]["bitwise_equal"] or float(dp_out[1]["loss"]) != float(want_loss):
+        emit(out)
+        raise AssertionError(f"distributed: the DP step and train_step part ({out['dp_vs_train_step']})")
+    del dp_out, want
+
+    # 20 int8-compressed steps on the same batch; the all-reduce alone, timed
+    adam = optim.adam(lr=1e-3, max_grad_norm=loop_cfg.max_grad_norm)
+    int8_step = make_dp_train_step(loss_fn, adam, compression="int8")
+    state, losses, step_ms = fresh(adam), [], []
+    for i in range(SIZES["dp_int8_steps"]):
+        (state, m), ms = timed(lambda: int8_step(state, (g1, y1), i))
+        losses.append(float(m["loss"]))
+        step_ms.append(ms)
+    bufs = [torch.zeros_like(p) for p in nn.tree_leaves(params0)]
+
+    def reduce_all():
+        for t in bufs:
+            dist.all_reduce(t)
+
+    out["int8"] = {"steps": len(losses), "losses": losses, "step_ms_median": float(np.median(step_ms[1:])),
+                   "allreduce_ms_per_step": cuda_ms(reduce_all), "allreduce_leaves": len(bufs),
+                   "allreduce_bytes": 4 * sum(t.numel() for t in bufs), "lr": 1e-3}
+    if not losses[-1] < losses[0] or not all(np.isfinite(losses)):
+        emit(out)
+        raise AssertionError(f"distributed: the int8 loss did not fall ({losses[0]} -> {losses[-1]})")
+    del state, bufs
+
+    # the pipeline at one stage (K = 1, M = 8) against its stage
+    gen = torch.Generator().manual_seed(11)
+    W = (torch.randn((1, 256, 256), generator=gen) / 16).to(DEVICE)
+    xs = torch.randn((8, 64, 256), generator=gen).to(DEVICE)
+
+    def stage(w, x):
+        return torch.tanh(x @ w)
+
+    piped = pipeline_forward(stage)(W, xs)
+    direct = torch.stack([stage(W[0], xs[m]) for m in range(xs.shape[0])])
+    out["pipeline"] = {"stages": 1, "microbatches": xs.shape[0], "bitwise_equal": bool(torch.equal(piped, direct)),
+                       "max_abs_diff": float((piped - direct).abs().max())}
+    if not out["pipeline"]["bitwise_equal"]:
+        emit(out)
+        raise AssertionError("distributed: the one-stage pipeline differs from its stage")
+
+    # elastic: the train phase's stored model (host tensors) re-sharded onto the card
+    host, _ = artifacts.load_cost_model("main_latency_p")
+    placed = elastic.reshard_state(host, nn.tree_map(lambda _: DEVICE, host))
+    leaves = list(zip(nn.tree_leaves(placed), nn.tree_leaves(host)))
+    out["elastic"] = {"leaves": len(leaves), "on_device": all(a.device.type == DEVICE for a, _ in leaves),
+                      "equal": all(torch.equal(a.cpu(), b) for a, b in leaves)}
+    if not (out["elastic"]["on_device"] and out["elastic"]["equal"]):
+        emit(out)
+        raise AssertionError(f"distributed: reshard_state changed the checkpoint ({out['elastic']})")
+    dist.destroy_process_group()
+    shutil.rmtree(store, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    return out
+
+
+def lm_train_phase(lm_cfg, weights, counted, cuda_ms, timed, card, costream):
+    """RecurrentGemma-2B training on the card through ``make_train_step`` at
+    full width and depth (``remat="full"``), from the lm phase's bf16 weights
+    (``weights["params"]``, handed over so that the first step can free
+    them).  A warm step, counted: every RG-LRU layer's scan launched forward,
+    the grouped layers' again in the remat recompute, and each layer's
+    reversed scan in the backward; then timed steps split into forward,
+    backward and optimizer (synchronized between the parts, the same calls
+    ``train_step`` makes), whose loss must fall and whose grad norm must be
+    finite.  The step's loss and grad norm with the plain scan against the
+    kernel; the scan's backward at the step's shape against the plain VJP."""
+    import numpy as np
+    import torch
+
+    from repro_torch import nn
+    from repro_torch.kernels.common import oracle_vjp
+    from repro_torch.kernels.rglru import ops as scan_ops
+    from repro_torch.kernels.rglru.ref import linear_scan_ref
+    from repro_torch.models import steps
+    from repro_torch.training import optim
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = lm_cfg
+    B, S, width = SIZES["lm_train_batch"], SIZES["lm_prompt"], cfg.rnn_width
+    n_rec = sum(k == "rec" for k in cfg.pattern) * cfg.n_groups + sum(k == "rec" for k in cfg.suffix)
+    # remat recomputes the grouped layers only: the suffix runs outside the groups, as in the JAX package
+    n_recomputed = 0 if cfg.remat == "none" else sum(k == "rec" for k in cfg.pattern) * cfg.n_groups
+    want = {"forward": n_rec, "recomputed": n_recomputed, "reversed": n_rec}
+    tokens = torch.as_tensor(np.random.default_rng(2).integers(0, cfg.vocab, (B, S)).astype(np.int32), device=DEVICE)
+    batch = {"tokens": tokens}
+    tcfg = steps.TrainStepConfig()
+    train_step, opt = steps.make_train_step(cfg, tcfg, device=DEVICE)
+    params = weights.pop("params")
+    state = {"params": params, "opt": opt.init(params), "step": torch.zeros((), dtype=torch.int32, device=DEVICE)}
+    del params
+    out = {"phase": "lm_train", "card": card, "model": {"arch": cfg.name, "layers": cfg.n_layers(), "rglru_layers": n_rec,
+                                                      "remat": cfg.remat, "dtype": "bfloat16", "moments": "float32"},
+           "batch": B, "seq": S, "optimizer": dataclasses.asdict(tcfg) | {"moment_dtype": str(tcfg.moment_dtype)}}
+
+    reversed_calls = [0]  # the Function's backward calls linear_scan_bwd once per RG-LRU layer
+    real_bwd = scan_ops.linear_scan_bwd
+
+    def counting_bwd(*args):
+        reversed_calls[0] += 1
+        return real_bwd(*args)
+
+    scan_ops.linear_scan_bwd = counting_bwd
+    ((state, m), warm_ms), got = counted("lm_train_step", lambda: timed(lambda: train_step(state, batch)),
+                                         ("linear_scan",), costream)
+    if got["linear_scan"] != sum(want.values()) or reversed_calls[0] != want["reversed"]:
+        emit(out)
+        raise AssertionError(f"lm_train: {got['linear_scan']} linear_scan launches ({reversed_calls[0]} reversed), "
+                             f"want {want}")
+    losses, norms = [float(m["loss"])], [float(m["grad_norm"])]
+    parts, launches = [], []
+    for _ in range(SIZES["lm_train_steps"]):
+        torch.cuda.synchronize()
+        t, c = [time.perf_counter()], [scan_ops.linear_scan.launches, reversed_calls[0]]
+        live = nn.tree_map(lambda p: p.detach().requires_grad_(), state["params"])
+        loss = steps.lm_loss(live, cfg, batch)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        c.append(scan_ops.linear_scan.launches)
+        flat = list(torch.autograd.grad(loss, [leaf for _, leaf in nn.tree_leaves_with_paths(live)]))[::-1]
+        grads = nn.tree_map(lambda _: flat.pop(), state["params"])  # empties flat: no gradient outlives the step
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        c.append(scan_ops.linear_scan.launches)
+        norm = optim.global_norm(grads)
+        params, opt_state = steps.apply_update(tcfg, grads, state["opt"], state["params"], norm)
+        state = {"params": params, "opt": opt_state, "step": state["step"] + 1}
+        del live, grads, params, opt_state
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        parts.append(np.diff(t) * 1e3)
+        launches.append({"forward": c[2] - c[0], "backward": c[3] - c[2], "reversed": reversed_calls[0] - c[1]})
+        losses.append(float(loss.detach()))
+        norms.append(float(norm))
+    fwd, bwd, upd = np.median(np.asarray(parts), axis=0)
+    out["step"] = {"forward_ms": fwd, "backward_ms": bwd, "optimizer_ms": upd, "step_ms": fwd + bwd + upd,
+                   "warm_step_ms": warm_ms, "timed_steps": len(parts), "tokens_per_s": B * S / ((fwd + bwd + upd) / 1e3),
+                   "linear_scan_launches": {"warm_step": got["linear_scan"], "want": want, "split_steps": launches}}
+    out["losses"], out["grad_norms"] = losses, norms
+    out["max_memory_allocated_bytes"] = int(torch.cuda.max_memory_allocated())
+    out["max_memory_reserved_bytes"] = int(torch.cuda.max_memory_reserved())
+    bad = [l for l in launches if l != {"forward": want["forward"], "backward": want["recomputed"] + want["reversed"],
+                                        "reversed": want["reversed"]}]
+    if bad or not losses[-1] < losses[1] or not all(np.isfinite(norms)):
+        emit(out)
+        raise AssertionError(f"lm_train: launches {bad}, losses {losses}, grad norms {norms}")
+
+    # one step's loss and grad norm with the plain scan against the kernel, from the same parameters
+    def loss_and_norm(c):
+        loss, grads = steps.lm_loss_and_grads(state["params"], c, batch)
+        return float(loss), float(optim.global_norm(grads))
+
+    (lk, nk), _ = counted("lm_train_loss_kernel", lambda: loss_and_norm(cfg), ("linear_scan",), costream)
+    (lp, np_), _ = counted("lm_train_loss_plain", lambda: loss_and_norm(dataclasses.replace(cfg, use_rglru_kernel=False)),
+                           (), costream + ("linear_scan",))
+    out["kernel_vs_plain_scan"] = {"loss": lk, "loss_plain": lp, "grad_norm": nk, "grad_norm_plain": np_,
+                                   "bound_rel": LM_SCAN_REL, "bound_rule": "2**-8 relative: one bf16 rounding"}
+    if abs(lk - lp) > LM_SCAN_REL * abs(lp) or abs(nk - np_) > LM_SCAN_REL * abs(np_):
+        emit(out)
+        raise AssertionError(f"lm_train: the kernel and plain-scan steps part ({out['kernel_vs_plain_scan']})")
+    del state
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # the scan's backward at the step's shape: the Function against the plain VJP
+    gen = torch.Generator().manual_seed(5)
+    a = torch.rand((B, S, width), generator=gen).to(DEVICE).requires_grad_()
+    b, h0g, g = (torch.randn(shape, generator=gen).to(DEVICE) for shape in ((B, S, width), (B, width), (B, S, width)))
+    b.requires_grad_()
+    h0g.requires_grad_()
+    h = scan_ops.linear_scan(a, b, h0g)
+
+    def kernel():
+        return torch.autograd.grad(h, (a, b, h0g), g, retain_graph=True)
+
+    def plain():
+        return oracle_vjp(types.SimpleNamespace(needs_input_grad=(True, True, True)), linear_scan_ref, g, a, b, h0g)
+
+    got_g, want_g = kernel(), plain()
+    errs = [float((x - y).abs().max()) for x, y in zip(got_g, want_g)]
+    limits = [TOL * float(y.abs().max()) for y in want_g]
+    n = B * S * width
+    b_ms, b_by = bound(3.0 * n, 4.0 * 5 * n)  # reads a, g, h; writes lambda and da; a mul-add a step and da's mul
+    out["scan_backward"] = {"shape": [B, S, width], "max_abs_err": dict(zip(("da", "db", "dh0"), errs)),
+                            "limit": dict(zip(("da", "db", "dh0"), limits)), "rule": "1e-5 x max|plain|",
+                            "ms": cuda_ms(kernel), "plain_ms": cuda_ms(plain, reps=2, warmup=1), "bound_ms": b_ms,
+                            "bound_by": b_by, "library_ms": None,
+                            "bytes_moved_note": "the flips copy a and g and reverse lambda: three more passes"}
+    scan_ops.linear_scan_bwd = real_bwd
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    if any(e > l for e, l in zip(errs, limits)):
+        raise AssertionError(f"lm_train: the scan's backward disagrees with the plain VJP ({errs} against {limits})")
+    return out
+
+
 def main() -> int:
+    # the lm_train phase's step frees and makes tensors of many sizes (per-leaf
+    # optimizer temporaries as large as the embedding, (B, S, V) float32
+    # gradients of the logits); without expandable segments the caching
+    # allocator keeps much of the card reserved in blocks none of them fits,
+    # and the second step runs out of memory
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
 
     if not torch.cuda.is_available():
@@ -1378,6 +1663,9 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+
     # -- 4. train: the port's launch/train.py on the 22,000-trace corpus -----------
     torch.cuda.reset_peak_memory_stats()
     (ROOT / "build").mkdir(exist_ok=True)
@@ -1600,20 +1888,21 @@ def main() -> int:
                        "meta": bundle.meta}
     train["max_memory_allocated_bytes"] = int(torch.cuda.max_memory_allocated())
     emit(train)
+
+    # -- 5. distributed: the DP step, the pipeline and re-sharding on one rank -------
+    distributed_phase(params0, (g1, y1, band1), tcfg, opt, tcfg_train, counted, cuda_ms, timed, card)
     del served, results, params0, g1, y1, val_g
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
-    # -- 5. baselines: the traditional-MP GNN, the flat vector, the other training
+    # -- 6. baselines: the traditional-MP GNN, the flat vector, the other training
     # stages, in the train phase's artifact root ------------------------------------
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
     rows.append(baselines_phase(corpus, host_batch, queries[2], counted, device_split, timed, check_answers, bank_case,
                                 step_split, card))
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
-    # -- 6. service and 7. control: the trained bundle behind PlacementService
+    # -- 7. service and 8. control: the trained bundle behind PlacementService
     # and the fleet controller ------------------------------------------------
     svc_est, svc_cpu = service_phase(bundle, lambda: artifacts.load_bundle("main"), counted, device_split, card)
     control_phase(svc_est, svc_cpu, counted, card)
@@ -1622,7 +1911,7 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
-    # -- 8. lm: RecurrentGemma-2B serving through make_serve_step -----------------
+    # -- 9. lm: RecurrentGemma-2B serving through make_serve_step -----------------
     costream = ("banked_mlp", "mp_update", "mp_sweep", "gather_sum", "segment_sum")
     n_rec = sum(k == "rec" for k in lm_cfg.pattern) * lm_cfg.n_groups + sum(k == "rec" for k in lm_cfg.suffix)
     prompt, n_dec = SIZES["lm_prompt"], SIZES["lm_decode"]
@@ -1701,7 +1990,7 @@ def main() -> int:
         raise AssertionError(f"lm: the kernel run and the plain-scan run differ by {diffs[worst]} at step {worst} "
                              f"(bound {bounds[worst]})")
     lm["max_memory_allocated_bytes"] = int(torch.cuda.max_memory_allocated())
-    del lm_params, cache_k, cache_p, prefilled, empty_cache, lg, lg_p
+    del cache_k, cache_p, prefilled, empty_cache, lg, lg_p, nxt, nxt_p, tokens
     torch.cuda.empty_cache()
 
     # the reduced model in fp32 on the card against the CPU, same weights:
@@ -1730,8 +2019,18 @@ def main() -> int:
     if not r_ok:
         raise AssertionError(f"lm: the reduced model on the card disagrees with the CPU "
                              f"(max abs err {max_diff(pairs)})")
+    del r_cpu, r_dev, caches, pairs
 
-    # -- 9. kernel summary (the representative case: the most work on the path) -------
+    # -- 10. lm_train: RecurrentGemma-2B training through make_train_step ----------
+    weights = {"params": lm_params}
+    del lm_params
+    lm_train = lm_train_phase(lm_cfg, weights, counted, cuda_ms, timed, card, costream)
+    backward["linear_scan"] = {"ms": lm_train["scan_backward"]["ms"],
+                               "plain_ms": lm_train["scan_backward"]["plain_ms"],
+                               "bound_ms": lm_train["scan_backward"]["bound_ms"],
+                               "launches_per_step": lm_train["model"]["rglru_layers"]}
+
+    # -- 11. kernel summary (the representative case: the most work on the path) ------
     sources = {
         "banked_mlp": ("src/repro_torch/csrc/banked_mlp.cu", "src/repro/kernels/banked_mlp/kernel.py:53"),
         "mp_update": ("src/repro_torch/csrc/mp_update.cu", "src/repro/kernels/mp_update/kernel.py:64"),
@@ -1751,12 +2050,14 @@ def main() -> int:
                         "ms": rep["ms"], "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
                         "bound_by": rep["bound_by"], "library_ms": rep["library_ms"], "case": rep["case"],
                         "shape": rep["shape"], **{k: rep[k] for k in ("per_level_ms", "per_level_max_abs_err") if k in rep},
-                        # the backward: the plain version's VJP, at the training shape
+                        # the backward at the training shape: the plain version's VJP, or for
+                        # linear_scan the reversed scan on the kernel (with its plain VJP's ms and its bound)
                         "backward_ms": backward[name]["ms"] if name in backward else None,
+                        **{f"backward_{k}": backward[name][k] for k in ("plain_ms", "bound_ms") if k in backward.get(name, {})},
                         "backward_launches_per_train_step": backward[name]["launches_per_step"] if name in backward else 0})
     emit({"kernels": summary})
 
-    # -- 10. the card, 11. status ---------------------------------------------------
+    # -- 12. the card, 13. status ---------------------------------------------------
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

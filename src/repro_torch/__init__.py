@@ -3,9 +3,10 @@
 The COSTREAM serving paths — featurize a joint operator-resource graph, run
 the 3-stage message-passing GNN ensembles, vote the per-metric costs, for one
 request (``estimate`` / ``score`` / ``optimize``) or across many
-(``estimate_many`` / ``score_many``) — and the LM stack's RecurrentGemma-2B
-serving path (``models/``, ``configs/``: prefill into the decode cache, then
-cached decode).  Six kernels carry them, hand-written in CUDA C++ for Hopper
+(``estimate_many`` / ``score_many``) — their training, the LM stack's
+RecurrentGemma-2B (``models/``, ``configs/``: prefill into the decode cache,
+cached decode, the train step) and the distribution substrate
+(``distributed/``: the data-parallel step, the pipeline, sharding rules).  Six kernels carry them, hand-written in CUDA C++ for Hopper
 (``csrc/``): ``banked_mlp``, ``mp_update``, ``mp_sweep``, ``gather_sum``,
 ``segment_sum`` and the RG-LRU ``linear_scan``.  The port imports nothing of
 ``repro`` and no JAX.

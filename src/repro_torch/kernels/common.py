@@ -6,8 +6,10 @@ backward is the VJP of the kernel's jnp oracle (``repro/kernels/*/ops.py``:
 one ``torch.autograd.Function`` per kernel: its forward launches the CUDA
 kernel, its backward re-runs the plain PyTorch version (``ref.py``) on the
 saved inputs, on the same device, and returns autograd's VJP of it.  No TPU
-kernel had a backward kernel, so none has one here.  On the CPU the wrappers
-run the plain version itself, with plain autograd.
+kernel had a backward kernel, so none has one here; ``linear_scan``'s
+backward runs its own forward kernel again, backwards in time
+(``rglru/ops.py``), in place of the plain VJP, a loop over T.  On the CPU the
+wrappers run the plain version itself, with plain autograd.
 """
 
 from __future__ import annotations

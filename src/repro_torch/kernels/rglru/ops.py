@@ -1,17 +1,24 @@
 """Wrapper of the RG-LRU linear-scan kernel (``csrc/rglru.cu``).
 
-For tensors on the CPU it runs the plain version (``ref.py``); for tensors on
-a GPU it launches the CUDA kernel or raises.  It never falls back.  The
-kernel reads ``a``, ``b`` and ``h0`` through their strides, so a
-non-contiguous input (``h0`` as a slice of a stacked cache, a step slice of
-a wider tensor) needs no copy; the output is a new contiguous tensor.  There
-is no backward yet: the JAX package's backward is its oracle's VJP, and the
-port's ``autograd.Function`` comes with LM training (ROADMAP.md queue 1,
-item 10); until then a launch on an input that requires grad raises rather
-than return a result autograd cannot see.
+For tensors on the CPU it runs the plain version (``ref.py``) under plain
+autograd; for tensors on a GPU it launches the CUDA kernel or raises.  It
+never falls back.  The kernel reads ``a``, ``b`` and ``h0`` through their
+strides, so a non-contiguous input (``h0`` as a slice of a stacked cache, a
+step slice of a wider tensor) needs no copy; the output is a new contiguous
+tensor.
+
+On a GPU the launch runs inside an ``autograd.Function``.  Its backward is
+not the plain version's VJP (which the JAX package's ``custom_vjp`` uses, and
+the COSTREAM kernels' Functions): the VJP of ``h_t = a_t h_{t-1} + b_t`` is
+itself a linear scan, run backwards in time (``linear_scan_bwd``), so the
+backward launches the same kernel once on reversed copies of its inputs.
+The plain VJP is a sequential loop over T under autograd, hundreds of times
+slower at a training shape; the tests hold the reversed scan against it.
 """
 
 from __future__ import annotations
+
+from typing import Callable, Tuple
 
 import torch
 
@@ -23,7 +30,7 @@ from repro_torch.kernels.rglru.ref import linear_scan_ref
 def linear_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> torch.Tensor:
     """``h_t = a_t * h_{t-1} + b_t`` over T: a, b (B, T, D), h0 (B, D), all
     float32 on one device -> h (B, T, D) float32.  T = 0 gives an empty
-    result and launches nothing."""
+    result and launches nothing.  Differentiable in ``a``, ``b`` and ``h0``."""
     for name, t in (("a", a), ("b", b), ("h0", h0)):
         if t.dtype != torch.float32:
             raise TypeError(f"linear_scan takes float32 only; {name} is {t.dtype}")
@@ -38,7 +45,12 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> torch.Ten
         return linear_scan_ref(a, b, h0)
     if a.device.type != "cuda":
         raise ValueError(f"linear_scan runs on the CPU or a CUDA device, not {a.device}")
-    check_untracked("linear_scan", a, b, h0, why=" (its backward comes with LM training: ROADMAP.md queue 1, item 10)")
+    return _LinearScan.apply(a, b, h0)
+
+
+def _launch(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> torch.Tensor:
+    check_untracked("linear_scan", a, b, h0)
+    B, T, D = a.shape
     out = torch.empty((B, T, D), dtype=torch.float32, device=a.device)
     if out.numel() == 0:
         return out
@@ -52,4 +64,43 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> torch.Ten
     return out
 
 
-linear_scan.launches = 0  # kernel launches (CUDA tensors only)
+linear_scan.launches = 0  # kernel launches (CUDA tensors only), forward and backward
+
+
+def linear_scan_bwd(
+    a: torch.Tensor, h0: torch.Tensor, h: torch.Tensor, g: torch.Tensor,
+    scan: Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor],
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The VJP of ``h = scan(a, b, h0)`` against ``g = dL/dh``: (da, db, dh0).
+
+    With ``h_{-1} = h0`` the adjoint is ``lam_{T-1} = g_{T-1}`` and ``lam_t =
+    g_t + a_{t+1} lam_{t+1}``; then ``db = lam``, ``da_t = lam_t h_{t-1}`` and
+    ``dh0 = a_0 lam_0``.  ``lam`` is ``scan`` over reversed time with the
+    coefficients shifted by one step and a zero start: one call of ``scan``
+    (the kernel on the card, ``linear_scan_ref`` in the tests) on
+    ``torch.flip`` copies.  ``h`` is the forward's output, saved, not
+    recomputed.
+    """
+    B, T, D = a.shape
+    if T == 0:
+        return torch.zeros_like(a), torch.zeros_like(a), torch.zeros_like(h0)
+    # reversed time: step s = T-1-t takes coefficient a_{t+1}; the first (a_T) meets the zero start
+    a_rev = torch.cat([torch.zeros_like(a[:, :1]), torch.flip(a[:, 1:], [1])], dim=1)
+    lam = torch.flip(scan(a_rev, torch.flip(g, [1]), torch.zeros_like(h0)), [1])
+    h_prev = torch.cat([h0[:, None], h[:, :-1]], dim=1)
+    return lam * h_prev, lam, a[:, 0] * lam[:, 0]
+
+
+class _LinearScan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, b, h0):
+        h = _launch(a, b, h0)
+        ctx.save_for_backward(a, h0, h)
+        return h
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        a, h0, h = ctx.saved_tensors
+        da, db, dh0 = linear_scan_bwd(a, h0, h, g.to(torch.float32), _launch)
+        return tuple(d if n else None for d, n in zip((da, db, dh0), ctx.needs_input_grad))

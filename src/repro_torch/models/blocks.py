@@ -24,6 +24,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.rglru import ops as scan_ops
 from repro_torch.kernels.rglru.ref import linear_scan_ref
@@ -190,6 +191,10 @@ def _attend_blocked(
 
 def _attend(q, k, v, **kw):
     if k.shape[1] > ATTN_BLOCK:
+        if torch.is_grad_enabled():
+            # as the JAX package's jax.checkpoint: the backward recomputes each
+            # chunk's fp32 probabilities instead of keeping all of them
+            return checkpoint(lambda q, k, v: _attend_blocked(q, k, v, **kw), q, k, v, use_reentrant=False)
         return _attend_blocked(q, k, v, **kw)
     return _attend_naive(q, k, v, **kw)
 

@@ -1,22 +1,25 @@
-"""Serving steps for the LM stack (port of ``repro/models/steps.py``).
+"""Train and serving steps for the LM stack (port of ``repro/models/steps.py``).
 
-``make_serve_step`` builds the cached step: prefill a batch of prompts into
-the decode cache (``cache_len=0``, S prompt tokens) or decode one token per
-request.  ``make_prefill_step`` runs a prompt once without a cache.  Both
-run on the GPU unless the caller asks for ``device="cpu"``, under
-``torch.no_grad``.  The training step (``cross_entropy``, ``lm_loss``,
-``make_train_step``) comes with LM training (ROADMAP queue 1, item 10).
+``make_train_step`` builds the training step: forward, next-token cross
+entropy, gradients, Adam(W) with global-norm clipping.  ``make_serve_step``
+builds the cached step: prefill a batch of prompts into the decode cache
+(``cache_len=0``, S prompt tokens) or decode one token per request.
+``make_prefill_step`` runs a prompt once without a cache, under
+``torch.no_grad`` as the serving step does.  Each runs on the GPU unless the
+caller asks for ``device="cpu"``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import nn
 from repro_torch.models.transformer import ModelConfig, forward
+from repro_torch.training import optim
 
 Params = Dict[str, Any]
 
@@ -32,6 +35,115 @@ def _check_params(params: Params, device: torch.device) -> None:
     where = params["embed"].device
     if where.type != device.type or (device.index is not None and where.index != device.index):
         raise ValueError(f"the parameters are on {where}, the step runs on {device}; move them first")
+
+
+def _leaves(tree):
+    return [leaf for _, leaf in nn.tree_leaves_with_paths(tree)]
+
+
+def _token_only(batch: Dict[str, Any], who: str) -> None:
+    if batch.keys() - {"tokens"}:
+        raise NotImplementedError(
+            f"{who}: inputs {sorted(batch.keys() - {'tokens'})} need a modality frontend, "
+            "not ported yet (ROADMAP queue 1, item 10)"
+        )
+
+
+# -- training ------------------------------------------------------------------------
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """logits (B, S, V) float32; targets (B, S) int -> scalar mean NLL.
+
+    The gold logit is a gather where the JAX package sums ``logits *
+    one_hot``: the same value (the sum has one nonzero term), without a
+    (B, S, V) one-hot tensor as large as the logits."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets.to(torch.int64)[..., None])[..., 0]
+    return torch.mean(logz - gold)
+
+
+def lm_loss(params: Params, cfg: ModelConfig, batch: Dict[str, Any]) -> torch.Tensor:
+    """Next-token prediction loss of ``batch["tokens"]`` (B, S), a tensor or a
+    host array (copied to the parameters' device)."""
+    _token_only(batch, "lm_loss")
+    tokens = _tokens(batch["tokens"], params["embed"].device)
+    logits, _ = forward(params, cfg, tokens)
+    return cross_entropy(logits[:, :-1, :], tokens[:, 1:])
+
+
+@dataclass(frozen=True)
+class TrainStepConfig:
+    lr: float = 3e-4
+    weight_decay: float = 0.01
+    max_grad_norm: Optional[float] = 1.0
+    moment_dtype: torch.dtype = torch.float32
+
+
+def make_optimizer(tcfg: TrainStepConfig) -> optim.Optimizer:
+    return optim.adam(
+        lr=tcfg.lr,
+        weight_decay=tcfg.weight_decay,
+        max_grad_norm=tcfg.max_grad_norm,
+        moment_dtype=tcfg.moment_dtype,
+    )
+
+
+def lm_loss_and_grads(params: Params, cfg: ModelConfig, batch: Dict[str, Any]) -> Tuple[torch.Tensor, Params]:
+    """``(lm_loss, its gradient)`` at ``params`` (a tree like it, in the parameters' dtypes)."""
+    live = nn.tree_map(lambda p: p.detach().requires_grad_(), params)
+    loss = lm_loss(live, cfg, batch)
+    grads = iter(torch.autograd.grad(loss, _leaves(live)))
+    return loss.detach(), nn.tree_map(lambda _: next(grads), params)
+
+
+def apply_update(tcfg: TrainStepConfig, grads: Params, opt_state: optim.AdamState, params: Params,
+                 grad_norm: torch.Tensor) -> Tuple[Params, optim.AdamState]:
+    """``make_optimizer(tcfg).update`` then ``optim.apply_updates``, with the
+    same numbers, one leaf at a time: each leaf's clipped gradient and float32
+    update are freed before the next leaf's are made, where a whole float32
+    update tree would sit beside both the old and the new moments (at
+    RecurrentGemma-2B's full width, twice the bf16 parameters' bytes).
+    ``grad_norm`` is the global norm of ``grads``.  A bfloat16 gradient is
+    clipped in float32, as JAX promotes a bf16 leaf times the float32 scale."""
+    leaf_opt = optim.adam(lr=tcfg.lr, weight_decay=tcfg.weight_decay, moment_dtype=tcfg.moment_dtype)
+    scale = None if tcfg.max_grad_norm is None else optim.clip_scale(grad_norm, tcfg.max_grad_norm)
+    new_p, new_m, new_v = [], [], []
+    for g, m, v, p in zip(_leaves(grads), _leaves(opt_state.mu), _leaves(opt_state.nu), _leaves(params)):
+        if scale is not None:
+            g = g.to(torch.float32) * scale
+        delta, st = leaf_opt.update(g, optim.AdamState(opt_state.step, m, v), p)
+        new_p.append((p + delta).to(p.dtype))
+        new_m.append(st.mu)
+        new_v.append(st.nu)
+        del g, delta, st
+
+    def rebuild(leaves):
+        it = iter(leaves)
+        return nn.tree_map(lambda _: next(it), params)
+
+    return rebuild(new_p), optim.AdamState(step=opt_state.step + 1, mu=rebuild(new_m), nu=rebuild(new_v))
+
+
+def make_train_step(cfg: ModelConfig, tcfg: TrainStepConfig = TrainStepConfig(), device=None):
+    """``(train_step, opt)``: ``train_step(state, batch) -> (state, {"loss",
+    "grad_norm"})`` over ``state = {"params", "opt": opt.init(params), "step"}``;
+    the grad norm is the unclipped one.  The state is not modified in place."""
+    device = nn.resolve_device(device, "train_step")
+    opt = make_optimizer(tcfg)
+
+    def train_step(state: Dict[str, Any], batch: Dict[str, Any]):
+        params = state["params"]
+        _check_params(params, device)
+        loss, grads = lm_loss_and_grads(params, cfg, batch)
+        norm = optim.global_norm(grads)
+        params, opt_state = apply_update(tcfg, grads, state["opt"], params, norm)
+        return {"params": params, "opt": opt_state, "step": state["step"] + 1}, {"loss": loss, "grad_norm": norm}
+
+    return train_step, opt
+
+
+# -- serving -------------------------------------------------------------------------
 
 
 def make_serve_step(cfg: ModelConfig, device=None):
@@ -59,11 +171,7 @@ def make_prefill_step(cfg: ModelConfig, device=None):
 
     def prefill_step(params: Params, batch: Dict[str, Any]):
         _check_params(params, device)
-        if batch.keys() - {"tokens"}:
-            raise NotImplementedError(
-                f"prefill_step: inputs {sorted(batch.keys() - {'tokens'})} need a modality frontend, "
-                "not ported yet (ROADMAP queue 1, item 10)"
-            )
+        _token_only(batch, "prefill_step")
         with torch.no_grad():
             logits, _ = forward(params, cfg, _tokens(batch["tokens"], device))
         return logits[:, -1:, :]

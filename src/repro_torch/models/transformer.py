@@ -3,8 +3,13 @@
 A model is a prefix + a repeated group pattern + a suffix of *blocks*.  The
 group parameters (and caches) are stacked along a leading ``layers`` axis, as
 in the JAX package, and run as a Python loop over the group index on the
-stacked tensors (JAX's ``scan_layers=False`` branch; ``scan_layers`` and
-``remat`` are read by nothing here).  Block kinds ported so far:
+stacked tensors: the loop stands for both of JAX's ``scan_layers`` branches.
+Under autograd the uncached forward rematerializes each group by
+``cfg.remat``, as JAX's scanned branch does (its unscanned one never
+remats): ``"none"`` keeps every activation, ``"full"`` checkpoints the group
+(``torch.utils.checkpoint``), ``"dots"`` keeps the outputs of the unbatched
+matmuls (``aten.mm``, JAX's ``checkpoint_dots_with_no_batch_dims``) and
+recomputes the rest.  Block kinds ported so far:
 
   "attn"     global attention + FFN
   "local"    sliding-window attention + FFN   (recurrentgemma, gemma2)
@@ -13,21 +18,25 @@ stacked tensors (JAX's ``scan_layers=False`` branch; ``scan_layers`` and
 
 The other kinds (MoE, MLA, xLSTM, the whisper encoder-decoder) and the
 modality frontends raise ``NotImplementedError`` (ROADMAP queue 1, item 10).
-With one card there is no mesh: the JAX package's activation constraints
-(``constrain_batch``) are the identity here and are left out.
+Activations are pinned where the JAX package pins them
+(``sharding_ctx.constrain_batch`` after the embedding and each group, the
+vocab-parallel logits); without an installed mesh those are the identity.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch import nn
 from repro_torch.models import blocks as B
-from repro_torch.models.params import ParamDef, pdef
+from repro_torch.models.params import ParamDef, mesh_shape, pdef
+from repro_torch.models.sharding_ctx import constrain, constrain_batch, get_mesh
 
 Params = Dict[str, Any]
 
@@ -72,7 +81,7 @@ class ModelConfig:
     # modality frontend: not ported yet
     frontend: str = "none"  # none | vision | audio
     vis_len: int = 0
-    # the JAX package's remat policy and layer scan; the port loops in Python
+    # rematerialization of each layer group under autograd: none | full | dots
     remat: str = "full"
     # run the rglru linear-scan kernel inside RG-LRU blocks
     use_rglru_kernel: bool = False
@@ -244,6 +253,25 @@ def _tree_slice(tree, i: int):
     return nn.tree_map(lambda x: x[i], tree)
 
 
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, policy: str):
+    """``fn`` rematerialized in the backward by ``policy`` (the JAX package's ``_remat``)."""
+    if policy == "none":
+        return fn
+    if policy == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if policy == "dots":
+        return functools.partial(checkpoint, fn, use_reentrant=False,
+                                 context_fn=functools.partial(create_selective_checkpoint_contexts, _save_dots))
+    raise ValueError(f"remat policy {policy!r}: want none, full or dots")
+
+
 # ---------------------------------------------------------------------------
 # full forward
 # ---------------------------------------------------------------------------
@@ -259,7 +287,19 @@ def embed_tokens(params: Params, cfg: ModelConfig, tokens: torch.Tensor) -> torc
 def unembed(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     x = B.apply_rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = x @ (params["embed"].T if cfg.tie_embeddings else params["head"])
-    return B.softcap(logits.to(torch.float32), cfg.final_softcap)
+    logits = B.softcap(logits.to(torch.float32), cfg.final_softcap)
+    mesh = get_mesh()
+    if mesh is not None:
+        shape = mesh_shape(mesh)
+        if "model" in shape and cfg.vocab % shape["model"] == 0:
+            # vocab-parallel logits: the fp32 (B, S, V) tensor stays sharded over the model axis
+            daxes = tuple(a for a in ("pod", "data") if a in shape)
+            bax = daxes if len(daxes) > 1 else (daxes[0] if daxes else None)
+            if bax is not None and logits.shape[0] % math.prod(shape[a] for a in daxes) == 0:
+                logits = constrain(logits, bax, *([None] * (logits.ndim - 2)), "model")
+            else:
+                logits = constrain(logits, *([None] * (logits.ndim - 1)), "model")
+    return logits
 
 
 def forward(
@@ -275,7 +315,7 @@ def forward(
     ``cache_len .. cache_len + S - 1`` and the new cache is returned; the
     caller's cache is not modified."""
     check_supported(cfg)
-    x = embed_tokens(params, cfg, tokens)
+    x = constrain_batch(embed_tokens(params, cfg, tokens))
     S = x.shape[1]
     start = 0 if cache_len is None else int(cache_len)
     positions = torch.arange(start, start + S, dtype=torch.int32, device=x.device)
@@ -287,17 +327,26 @@ def forward(
     for i, kind in enumerate(cfg.prefix):
         x, nc = run(params["prefix"][i], x, kind, None if cache is None else cache["prefix"][i])
         new_cache.setdefault("prefix", []).append(nc)
-    if cfg.n_groups > 0:
+    if cfg.n_groups > 0 and cache is None:
+
+        def group_fn(x, gp):
+            for i, kind in enumerate(cfg.pattern):
+                x, _ = run(gp[f"b{i}"], x, kind, None)
+            return constrain_batch(x)
+
+        group = _remat(group_fn, cfg.remat) if torch.is_grad_enabled() else group_fn
+        for gi in range(cfg.n_groups):
+            x = group(x, _tree_slice(params["groups"], gi))
+    elif cfg.n_groups > 0:
         group_caches = []
         for gi in range(cfg.n_groups):
-            gp = _tree_slice(params["groups"], gi)
-            gc = None if cache is None else _tree_slice(cache["groups"], gi)
+            gp, gc = _tree_slice(params["groups"], gi), _tree_slice(cache["groups"], gi)
             ncs = {}
             for i, kind in enumerate(cfg.pattern):
-                x, ncs[f"b{i}"] = run(gp[f"b{i}"], x, kind, None if gc is None else gc[f"b{i}"])
+                x, ncs[f"b{i}"] = run(gp[f"b{i}"], x, kind, gc[f"b{i}"])
             group_caches.append(ncs)
-        if cache is not None:
-            new_cache["groups"] = nn.tree_map(lambda *xs: torch.stack(xs), *group_caches)
+            x = constrain_batch(x)
+        new_cache["groups"] = nn.tree_map(lambda *xs: torch.stack(xs), *group_caches)
     for i, kind in enumerate(cfg.suffix):
         x, nc = run(params["suffix"][i], x, kind, None if cache is None else cache["suffix"][i])
         new_cache.setdefault("suffix", []).append(nc)

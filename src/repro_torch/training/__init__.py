@@ -1,5 +1,6 @@
 """Training substrate in PyTorch: optimizers, data pipeline, the loop,
-checkpointing and gradient compression (the port of ``repro.training``)."""
+checkpointing, gradient compression and elastic re-sharding
+(``training/elastic.py``) (the port of ``repro.training``)."""
 
 from repro_torch.training.optim import (
     adam,

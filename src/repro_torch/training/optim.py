@@ -63,9 +63,13 @@ def global_norm(tree: PyTree) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32))) for x in leaves))
 
 
+def clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    """The factor ``clip_by_global_norm`` multiplies every leaf by."""
+    return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+
+
 def clip_by_global_norm(tree: PyTree, max_norm: float) -> PyTree:
-    norm = global_norm(tree)
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    scale = clip_scale(global_norm(tree), max_norm)
     return nn.tree_map(lambda x: x * scale, tree)
 
 

@@ -9,7 +9,10 @@ estimator and the reduced LM on the card against the same on the CPU.  Each
 kernel's ``autograd.Function`` is held against autograd of the plain version
 at the training shape (3 members, a batch of 512, hidden 64), and a cost
 model under ``use_pallas=True`` against the plain path, the 3-stage engine
-and the Exp-7b traditional forward both.
+and the Exp-7b traditional forward both.  ``linear_scan``'s Function (whose
+backward is the reversed scan on the kernel) is held against the plain
+scan's VJP, and the data-parallel step on one NCCL rank against the
+training loop's step.
 """
 
 import dataclasses
@@ -563,8 +566,9 @@ def test_launch_outside_its_function_raises(cuda):
     with pytest.raises(RuntimeError, match="drop the gradient"):
         bank_ops._launch(x, w1, b1, w2, b2, SLOT_RANGES)
     a = torch.rand((2, 9, 32), device=cuda, requires_grad=True)
-    with pytest.raises(RuntimeError, match="item 10"):
-        scan_ops.linear_scan(a, a, torch.zeros((2, 32), device=cuda))
+    with pytest.raises(RuntimeError, match="drop the gradient"):
+        scan_ops._launch(a, a, torch.zeros((2, 32), device=cuda))
+    assert scan_ops.linear_scan(a, a, torch.zeros((2, 32), device=cuda)).grad_fn is not None
     with torch.no_grad():
         assert scan_ops.linear_scan(a, a, torch.zeros((2, 32), device=cuda)).shape == a.shape
 
@@ -643,3 +647,58 @@ def test_traditional_gradient_through_kernels_matches_plain(cuda, metric):
     for (path, a), (_, b) in zip(nn.tree_leaves_with_paths(grads), nn.tree_leaves_with_paths(want)):
         assert float(a.abs().max()) > 0, path
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5 * float(b.abs().max()), msg=str(path))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,D", [(2, 2048, 2560), (3, 37, 100), (2, 1, 64)])
+def test_linear_scan_backward_matches_plain_vjp(cuda, B, T, D):
+    """The ``autograd.Function``'s backward (the reversed scan on the kernel,
+    two launches a forward and backward) against the VJP of the plain scan
+    (``oracle_vjp`` of ``linear_scan_ref``), at the LM train step's shape and
+    ragged ones, within 1e-5 x max|plain| (the scan's tolerance)."""
+    from types import SimpleNamespace
+
+    from repro_torch.kernels.common import oracle_vjp
+
+    gen = torch.Generator().manual_seed(T)
+    a = torch.rand((B, T, D), generator=gen).to(cuda).requires_grad_()
+    b = torch.randn((B, T, D), generator=gen).to(cuda).requires_grad_()
+    h0 = torch.randn((B, D), generator=gen).to(cuda).requires_grad_()
+    g = torch.randn((B, T, D), generator=gen).to(cuda)
+    before = scan_ops.linear_scan.launches
+    h = scan_ops.linear_scan(a, b, h0)
+    got = torch.autograd.grad(h, (a, b, h0), g)
+    torch.cuda.synchronize()
+    assert scan_ops.linear_scan.launches == before + 2
+    want = oracle_vjp(SimpleNamespace(needs_input_grad=(True, True, True)), linear_scan_ref, g, a, b, h0)
+    for x, y in zip(got, want):
+        torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-5 * float(y.abs().max()))
+
+
+@pytest.mark.gpu
+def test_dp_step_on_one_nccl_rank_matches_train_step(cuda, tmp_path):
+    """``make_dp_train_step`` on one NCCL rank (the all-reduce is the
+    identity, the division by 1 exact) against ``training/loop.py``'s
+    ``train_step`` on one exact-banded batch of 512 graphs: equal parameters."""
+    import torch.distributed as dist
+
+    from repro_torch.core.model import ensemble_loss
+    from repro_torch.distributed import make_dp_train_step
+    from repro_torch.training import optim
+    from repro_torch.training.compression import ef_init
+
+    traces = WorkloadGenerator(seed=8).corpus(700)
+    ds, buckets = batching.bucket_dataset(batching.dataset_from_traces(traces, "latency_p"), exact=True)
+    g, y, band = next(iter(batching.bucketed_batches(ds, buckets, 512, rng=np.random.default_rng(0), device=cuda)))
+    cfg = CostModelConfig(metric="latency_p", gnn=GNNConfig(use_pallas=True))
+    params = nn.to_device(init_cost_model(torch.Generator().manual_seed(0), cfg), cuda)
+    opt = optim.adam(lr=1e-3, max_grad_norm=5.0)
+    want, _, _, _ = loop.train_step(params, opt.init(params), ef_init(params), g, y, band, cfg, opt, loop.TrainConfig())
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'store'}", rank=0, world_size=1)
+    try:
+        step = make_dp_train_step(lambda p, batch: ensemble_loss(p, *batch, cfg, band), opt)
+        state, _ = step({"params": params, "opt": opt.init(params), "step": 0}, (g, y), 0)
+    finally:
+        dist.destroy_process_group()
+    for a, b in zip(nn.tree_leaves(state["params"]), nn.tree_leaves(want)):
+        assert torch.equal(a, b)
