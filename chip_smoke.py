@@ -75,6 +75,17 @@ Each phase prints one JSON line:
            finite, peak memory; the step's loss and grad norm with the plain scan
            against the kernel; the scan's backward at (2, 2048, 2560) against the
            plain VJP within 1e-5 x max|plain|, both timed
+  lm_archs one line an architecture for internlm2-1.8b, qwen3-8b, gemma2-2b,
+           deepseek-67b, arctic-480b, deepseek-v2-236b and xlstm-125m (LM_ARCHS):
+           one period of the layer pattern at the published widths in fp32 (the
+           MoE at capacity factor E / k, so that no pair drops), its cached path's
+           decode steps against the uncached forward; the reduced config in fp32 on
+           the card against the CPU; random bf16 weights at the published widths
+           (depth cut where the card cannot hold them: LM_ARCHS) serving 2 requests,
+           prompts prefilled into the cache (2048 tokens; gemma2's 4096-token
+           window) and 32 greedy decode steps: prefill and decode times, the device
+           split, the aten operators of a decode step, peak memory; none of the six
+           kernels launches on any of these paths
 then the kernel summary line, the card's name and power limit, and the status
 line.  Any failure exits nonzero; so does a machine without a CUDA device, or
 a directory that holds this script and nothing else of the repository.
@@ -139,8 +150,21 @@ SIZES = {"traces": 4096, "many_batch": 512, "drain_structures": 16, "drain_candi
          "svc_profile_drains": 20, "ctl_queries": 8, "ctl_ticks": 30,
          "trad_cpu_graphs": 512, "ablation_epochs": 1, "flat_epochs": 4, "extrap_traces": 400, "extrap_epochs": 1,
          "finetune_traces": 600, "finetune_epochs": 2, "lm_train_batch": 2, "lm_train_steps": 5,
-         "dp_int8_steps": 20}
+         "dp_int8_steps": 20, "archs_batch": 2, "archs_prompt": 2048, "archs_decode": 32,
+         "archs_check_prompt": 256, "archs_check_decode": 8}
 DEVICE = "cuda"
+#: The lm_archs phase's architectures, at their published widths.  Depth is
+#: cut (layer groups run) only where one 80 GB card cannot hold the bf16
+#: weights beside the activations; None runs every layer.
+LM_ARCHS = {
+    "internlm2-1.8b": None,  # 24 layers, 3.8 GB
+    "qwen3-8b": None,  # 36 layers, 16.4 GB
+    "gemma2-2b": None,  # 26 layers, 5.2 GB; its prompt is its 4096-token window, so decode crosses it
+    "deepseek-67b": 32,  # 32 of 95 layers: 44 GB, + 3.4 GB of embedding and head
+    "arctic-480b": 2,  # 2 of 35 layers, all 128 experts (13.6e9 parameters a layer): 54 GB + 0.9 GB
+    "deepseek-v2-236b": 5,  # the dense MLA layer + 5 of 59 MLA-MoE layers, all 160 experts: 40 GB + 2.1 GB
+    "xlstm-125m": None,  # 12 layers, 0.3 GB
+}
 
 
 def emit(obj) -> None:
@@ -1120,6 +1144,181 @@ def lm_train_phase(lm_cfg, weights, counted, cuda_ms, timed, card, costream):
     return out
 
 
+def lm_archs_phase(counted, timed, device_split, aten_ops, card, kernels):
+    """Each architecture of ``LM_ARCHS`` served through ``make_serve_step`` on
+    the card, one JSON line an architecture.  First one period of its layer
+    pattern (a dense prefix once) at the published widths in float32: the
+    cached path (a prefill, then greedy decode steps) against the uncached
+    ``forward`` of the same tokens within ``LM_RTOL``.  Then the reduced
+    config in float32, card against CPU: the uncached forward, a prefill and
+    decode steps with every cache leaf.  Then random bf16 weights at the
+    published widths, cut in depth as ``LM_ARCHS`` says: a prefill of
+    ``archs_batch`` prompts into the cache and ``archs_decode`` greedy
+    decode steps, timed, profiled and checked for finite logits of the
+    right shape.  None of ``kernels`` may launch on any of these paths."""
+    import numpy as np
+    import torch
+
+    from repro_torch import nn
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.params import count_params, materialize
+    from repro_torch.models.steps import make_serve_step
+    from repro_torch.models.transformer import forward, model_cache_defs, model_defs
+
+    dev = torch.device(DEVICE)
+    B, n_dec = SIZES["archs_batch"], SIZES["archs_decode"]
+    out = []
+
+    def quiet(path, fn):
+        return counted(path, fn, (), kernels)[0]
+
+    def leaves(tree):
+        return [leaf for _, leaf in nn.tree_leaves_with_paths(tree)]
+
+    def max_diff(pairs):
+        return max(float((a.float().cpu() - b.float().cpu()).abs().max()) for a, b in pairs)
+
+    def agree(pairs):
+        return all(torch.allclose(a.cpu(), b.cpu(), rtol=LM_RTOL, atol=LM_RTOL) for a, b in pairs)
+
+    def well_formed(what, logits, shape):
+        if tuple(logits.shape) != shape or not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"lm_archs {what}: logits {tuple(logits.shape)} (want {shape}), or non-finite values")
+
+    for arch, cut in LM_ARCHS.items():
+        t_arch = time.perf_counter()
+        published = get_config(arch)
+        full = reduced(published) if SIZES["lm_reduced"] else published  # a CPU dry run of the control flow
+        moe = full.moe is not None
+        rec = {"phase": "lm_archs", "arch": arch, "card": card}
+
+        # 1. one period at full width in float32: cached against uncached.  Each sequence is
+        # a MoE dispatch group whose capacity max(k, int(capacity_factor k S / E)) depends
+        # on its length S, so at the published factor a decode step (S = 1, nothing dropped)
+        # may differ from the long uncached forward's position.  A factor of E / k gives
+        # capacity S: no pair is dropped on either path, and every decode step is held.
+        period = dataclasses.replace(full, n_groups=1)
+        if moe:
+            period = dataclasses.replace(
+                period, moe=dataclasses.replace(full.moe, capacity_factor=full.moe.n_experts / full.moe.top_k))
+        P, n = SIZES["archs_check_prompt"], SIZES["archs_check_decode"]
+        torch.cuda.reset_peak_memory_stats()
+        w = materialize(torch.Generator(DEVICE).manual_seed(1), model_defs(period), torch.float32, DEVICE)
+        toks = torch.as_tensor(np.random.default_rng(1).integers(0, period.vocab, (B, P)).astype(np.int32), device=dev)
+        step = make_serve_step(period, device=DEVICE)
+
+        def check():
+            lg, cache, nxt = step(w, materialize(None, model_cache_defs(period, B, P + n), torch.float32, DEVICE),
+                                  toks, 0)
+            got, fed = [lg], []
+            for i in range(n):
+                fed.append(nxt)
+                lg, cache, nxt = step(w, cache, nxt, P + i)
+                got.append(lg)
+            with torch.no_grad():
+                want, _ = forward(w, period, torch.cat([toks, torch.cat(fed, 1)], 1))
+            pairs = [(g, want[:, P + i : P + i + 1]) for i, g in enumerate(got[1:])]
+            if full.xlstm is None:
+                pairs.append((got[0], want[:, :P]))
+            # xLSTM: a fresh cache starts the stabilizer m at 0 where the uncached forward
+            # starts it at -1e30, and the denominator max(|n . q|, 1) then differs at the
+            # first positions (the JAX package's semantics); the forget gates decay that
+            # start away, so the decode steps past the prompt are held, the prefill not
+            return pairs
+
+        pairs = quiet(f"lm_archs_check:{arch}", check)
+        rec["full_width_fp32"] = {
+            "layers": period.n_layers(), "params": count_params(model_defs(period)), "prompt": P, "decode_steps": n,
+            "compared": "decode steps" if full.xlstm else "prefill and decode steps",
+            "capacity_factor": period.moe.capacity_factor if moe else None,
+            "max_abs_err": max_diff(pairs), "max_abs_logit": max(float(b.abs().max()) for _, b in pairs),
+            "rtol_atol": LM_RTOL, "ok": agree(pairs), "peak_bytes": int(torch.cuda.max_memory_allocated())}
+        del w, pairs, step
+        torch.cuda.empty_cache()
+
+        # 2. the reduced config in float32, card against CPU
+        r_cfg = reduced(published)
+        r_cpu = materialize(torch.Generator().manual_seed(1), model_defs(r_cfg), torch.float32, "cpu")
+        r_dev = nn.to_device(r_cpu, dev)
+        r_toks = np.random.default_rng(1).integers(0, r_cfg.vocab, (2, 12)).astype(np.int32)
+
+        def reduced_pairs():
+            with torch.no_grad():
+                want, _ = forward(r_cpu, r_cfg, torch.as_tensor(r_toks))
+                got, _ = forward(r_dev, r_cfg, torch.as_tensor(r_toks, device=dev))
+            pairs = [(got, want)]
+            caches = [materialize(None, model_cache_defs(r_cfg, 2, 24), torch.float32, d) for d in ("cpu", DEVICE)]
+            steps_ = make_serve_step(r_cfg, device="cpu"), make_serve_step(r_cfg, device=DEVICE)
+            toks_, pos = r_toks, 0
+            for _ in range(7):  # a 12-token prefill, 6 decode steps
+                want, caches[0], nxt = steps_[0](r_cpu, caches[0], toks_, pos)
+                got, caches[1], _ = steps_[1](r_dev, caches[1], toks_, pos)
+                pairs += list(zip([got] + leaves(caches[1]), [want] + leaves(caches[0])))
+                pos += toks_.shape[1]
+                toks_ = nxt.numpy()
+            return pairs
+
+        pairs = quiet(f"lm_archs_reduced:{arch}", reduced_pairs)
+        rec["reduced_card_vs_cpu"] = {"layers": r_cfg.n_layers(), "max_abs_err": max_diff(pairs), "rtol_atol": LM_RTOL,
+                                      "ok": agree(pairs)}
+        del r_cpu, r_dev, pairs
+
+        # 3. bf16 at the published widths, cut in depth: prefill, then greedy decode
+        cfg = full if cut is None else dataclasses.replace(full, n_groups=min(cut, full.n_groups))
+        defs = model_defs(cfg)
+        P = max(SIZES["archs_prompt"], cfg.window or 0)
+        rec["model"] = {"layers": cfg.n_layers(), "layers_published": published.n_layers(),
+                        "params": count_params(defs), "params_published": count_params(model_defs(published)),
+                        "d_model": cfg.d_model, "vocab": cfg.vocab, "dtype": "bfloat16",
+                        "cut": None if cut is None else f"{cfg.n_groups} of {published.n_groups} groups of {cfg.pattern}"
+                        + (f" after the prefix {cfg.prefix}" if cfg.prefix else "")}
+        rec.update({"requests": B, "prompt": P, "decode_steps": n_dec, "max_seq": P + n_dec})
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        w = materialize(torch.Generator(DEVICE).manual_seed(0), defs, device=DEVICE)
+        torch.cuda.synchronize()
+        rec["init_s"] = time.perf_counter() - t0
+        prompts = np.random.default_rng(0).integers(0, cfg.vocab, (B, P)).astype(np.int32)
+        step = make_serve_step(cfg, device=DEVICE)
+        empty = materialize(None, model_cache_defs(cfg, B, P + n_dec), device=DEVICE)
+
+        def prefill():
+            return step(w, empty, prompts, 0)
+
+        (logits, prefilled, first), rec["prefill_ms_first"] = quiet(f"lm_archs_prefill:{arch}", lambda: timed(prefill))
+        well_formed(f"{arch} prefill", logits, (B, P, cfg.vocab))
+        del logits
+        rec["prefill_ms"] = quiet(f"lm_archs_prefill:{arch}", lambda: timed(prefill))[1]
+        # an xLSTM prefill is a time loop of some 250 kernels a position; the profiler
+        # reads 2048 positions' worth for minutes, so its split is taken over the
+        # fp32 check's prompt length: the same loop, shorter
+        rec["prefill_profile_prompt"] = P if full.xlstm is None else SIZES["archs_check_prompt"]
+        rec["prefill_profile"] = device_split(lambda: step(w, empty, prompts[:, : rec["prefill_profile_prompt"]], 0))
+        cache, tok, dec_ms = prefilled, first, []
+        for i in range(n_dec):
+            (lg, cache, tok), ms = quiet(f"lm_archs_decode:{arch}", lambda: timed(lambda: step(w, cache, tok, P + i)))
+            well_formed(f"{arch} decode step {i}", lg, (B, 1, cfg.vocab))
+            dec_ms.append(ms)
+        rest = dec_ms[1:] or dec_ms
+        rec["decode_ms_first"] = dec_ms[0]
+        rec["decode_ms"] = {"mean": float(np.mean(rest)), "min": min(rest), "max": max(rest), "steps": len(rest)}
+        rec["tokens_per_s"] = {"prefill": B * P / (rec["prefill_ms"] / 1e3), "decode": B / (rec["decode_ms"]["mean"] / 1e3)}
+        rec["last_position"] = P + n_dec - 1
+        rec["decode_profile"] = device_split(lambda: step(w, prefilled, first, P))
+        rec["decode_aten_ops"] = aten_ops(lambda: step(w, prefilled, first, P))
+        rec["max_memory_allocated_bytes"] = int(torch.cuda.max_memory_allocated())
+        del w, empty, prefilled, cache, lg, step
+        torch.cuda.empty_cache()
+        rec["seconds"] = time.perf_counter() - t_arch
+        emit(rec)
+        out.append(rec)
+        bad = [k for k in ("full_width_fp32", "reduced_card_vs_cpu") if not rec[k]["ok"]]
+        if bad:
+            raise AssertionError(f"lm_archs {arch}: {bad} disagree ({[rec[k]['max_abs_err'] for k in bad]})")
+    return out
+
+
 def main() -> int:
     # the lm_train phase's step frees and makes tensors of many sizes (per-leaf
     # optimizer temporaries as large as the embedding, (B, S, V) float32
@@ -2030,7 +2229,12 @@ def main() -> int:
                                "bound_ms": lm_train["scan_backward"]["bound_ms"],
                                "launches_per_step": lm_train["model"]["rglru_layers"]}
 
-    # -- 11. kernel summary (the representative case: the most work on the path) ------
+    # -- 11. lm_archs: the other decoder-only architectures through make_serve_step --
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    lm_archs_phase(counted, timed, device_split, aten_ops, card, costream + ("linear_scan",))
+
+    # -- 12. kernel summary (the representative case: the most work on the path) ------
     sources = {
         "banked_mlp": ("src/repro_torch/csrc/banked_mlp.cu", "src/repro/kernels/banked_mlp/kernel.py:53"),
         "mp_update": ("src/repro_torch/csrc/mp_update.cu", "src/repro/kernels/mp_update/kernel.py:64"),
@@ -2057,7 +2261,7 @@ def main() -> int:
                         "backward_launches_per_train_step": backward[name]["launches_per_step"] if name in backward else 0})
     emit({"kernels": summary})
 
-    # -- 12. the card, 13. status ---------------------------------------------------
+    # -- 13. the card, 14. status ---------------------------------------------------
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,5 +1,5 @@
-"""Architecture configs (port of ``repro.configs``): the registry and the
-architectures whose blocks the port has."""
+"""Architecture configs (port of ``repro.configs``): the registry and one
+module per decoder-only architecture."""
 
 from repro_torch.configs.base import ARCHS, SHAPES, ShapeSpec, cell_supported, get_config, get_shape, reduced
 

@@ -7,8 +7,9 @@ Shapes (identical for every LM arch):
   decode_32k   seq 32,768  global_batch 128   serve_step (1 new token)
   long_500k    seq 524,288 global_batch 1     serve_step; SSM/hybrid only
 
-``get_config`` raises for an architecture whose config the port does not
-have yet.  The JAX package's ``input_specs`` serves its dry-run only and is
+``get_config`` raises for the two architectures whose blocks the port does
+not have yet (``whisper-base``'s encoder-decoder, ``internvl2-1b``'s vision
+frontend).  The JAX package's ``input_specs`` serves its dry-run only and is
 not ported.
 """
 
@@ -19,6 +20,7 @@ import importlib
 from dataclasses import dataclass
 from typing import Any, Dict, Tuple
 
+from repro_torch.models import blocks as B
 from repro_torch.models.transformer import ModelConfig
 
 ARCHS = (
@@ -36,7 +38,14 @@ ARCHS = (
 
 # the architectures the port has a config for (their blocks are ported)
 _MODULES = {
+    "internlm2-1.8b": "internlm2_1_8b",
+    "qwen3-8b": "qwen3_8b",
+    "deepseek-67b": "deepseek_67b",
+    "gemma2-2b": "gemma2_2b",
     "recurrentgemma-2b": "recurrentgemma_2b",
+    "arctic-480b": "arctic_480b",
+    "deepseek-v2-236b": "deepseek_v2_236b",
+    "xlstm-125m": "xlstm_125m",
 }
 
 # archs whose decode state is sub-quadratic in context (run long_500k)
@@ -71,8 +80,8 @@ def get_config(arch: str) -> ModelConfig:
         raise KeyError(arch)
     if arch not in _MODULES:
         raise NotImplementedError(
-            f"{arch}: its blocks are not ported yet; the port has configs for {sorted(_MODULES)} "
-            "(ROADMAP queue 1, item 10)"
+            f"{arch}: its encoder-decoder or vision frontend is not ported yet; the port has configs for "
+            f"{sorted(_MODULES)} (ROADMAP queue 1, item 10)"
         )
     return importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}").config()
 
@@ -86,8 +95,6 @@ def cell_supported(arch: str, shape: ShapeSpec) -> Tuple[bool, str]:
 
 def reduced(cfg: ModelConfig) -> ModelConfig:
     """Smoke-test variant: same family/topology, tiny sizes."""
-    if cfg.mla is not None or cfg.moe is not None or cfg.xlstm is not None:
-        raise NotImplementedError(f"{cfg.name}: MLA, MoE and xLSTM are not ported yet (ROADMAP queue 1, item 10)")
     kw: Dict[str, Any] = dict(
         d_model=64,
         n_heads=4,
@@ -102,4 +109,17 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         rnn_width=64 if cfg.rnn_width else None,
         remat="none",
     )
+    if cfg.mla is not None:
+        kw["mla"] = B.MLAConfig(d_model=64, n_heads=4, q_lora=32, kv_lora=16, d_nope=16, d_rope=8, d_v=16)
+    if cfg.moe is not None:
+        kw["moe"] = dataclasses.replace(
+            cfg.moe,
+            n_experts=4,
+            top_k=min(cfg.moe.top_k, 2),
+            expert_ff=32,
+            shared_ff=32 if cfg.moe.n_shared else 0,
+            dense_ff=32 if cfg.moe.dense_residual else 0,
+        )
+    if cfg.xlstm is not None:
+        kw["xlstm"] = B.XLSTMConfig(d_model=64, n_heads=4, expansion=2)
     return dataclasses.replace(cfg, **kw)

@@ -2,18 +2,20 @@
 
 Every block has a ``*_defs(cfg)`` (a ``ParamDef`` tree with the JAX
 package's key paths and sharding axes) and an ``apply_*`` function on
-tensors.  Ported so far: RMSNorm, RoPE, softcap; self-attention (GQA/MQA,
-qk-norm, softcaps, sliding window) uncached and into a decode cache, with
-the naive and the blocked online-softmax paths; the SwiGLU / GeGLU / GELU
-FFNs; the RG-LRU recurrent block (RecurrentGemma / Griffin), whose linear
-recurrence runs the ``rglru`` kernel.  Cross-attention, MLA, MoE and the
-xLSTM blocks are not ported yet (ROADMAP queue 1, item 10).
+tensors: RMSNorm, RoPE, softcap; self-attention (GQA/MQA, qk-norm,
+softcaps, sliding window) uncached and into a decode cache, with the naive
+and the blocked online-softmax paths; MLA with its compressed KV cache
+(deepseek-v2); the SwiGLU / GeGLU / GELU FFNs; the top-k MoE with per-sequence
+capacity, shared experts and a dense residual branch (arctic, deepseek-v2);
+the RG-LRU recurrent block (RecurrentGemma / Griffin), whose linear
+recurrence runs the ``rglru`` kernel; the mLSTM and sLSTM blocks (xLSTM).
+Cross-attention (whisper) is not ported yet (ROADMAP queue 1, item 10).
 
 Dtypes follow the JAX package: matmuls in the activation dtype, norms,
-attention softmax, RG-LRU gates and the recurrence in float32 where it casts
-to float32.  JAX's GELU is the tanh approximation (``approximate="tanh"``
-here); torch's ``softplus`` turns linear above 20, below float32 precision
-there.
+attention softmax, the MoE router's softmax and combine, RG-LRU gates and
+the recurrences in float32 where it casts to float32.  JAX's GELU is the
+tanh approximation (``approximate="tanh"`` here); torch's ``softplus`` turns
+linear above 20, below float32 precision there.
 """
 
 from __future__ import annotations
@@ -199,6 +201,19 @@ def _attend(q, k, v, **kw):
     return _attend_naive(q, k, v, **kw)
 
 
+def _cache_write(buf: torch.Tensor, new: torch.Tensor, start: int, who: str) -> torch.Tensor:
+    """A copy of the cache ``buf`` (B, S_max, ...) with ``new`` (B, S, ...)
+    written at sequence positions ``start .. start + S - 1``.  JAX's
+    ``dynamic_update_slice`` clamps a write that would run past the cache;
+    this raises instead."""
+    max_seq, S = buf.shape[1], new.shape[1]
+    if not 0 <= start <= max_seq - S:
+        raise ValueError(f"{who}: writing {S} tokens at {start} overruns a cache of {max_seq}")
+    out = buf.clone()
+    out[:, start : start + S] = new.to(out.dtype)
+    return out
+
+
 def apply_attn(
     p: Params,
     x: torch.Tensor,  # (B, S, d)
@@ -210,8 +225,7 @@ def apply_attn(
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Self-attention, uncached or into a decode cache (prefill: ``cache_len``
     0 and S prompt tokens; decode: S = 1).  The cache is not written in
-    place: the new one is returned.  JAX's ``dynamic_update_slice`` clamps
-    a write that would run past the cache; this raises instead."""
+    place: the new one is returned (``_cache_write``)."""
     if c.cross:
         raise NotImplementedError("cross-attention is not ported yet (ROADMAP queue 1, item 10)")
     B, S, _ = x.shape
@@ -228,19 +242,92 @@ def apply_attn(
     new_cache = None
     kw = dict(q_pos=positions, causal=c.causal, window=c.window, cap=c.attn_softcap)
     if cache is not None:
-        max_seq = cache["k"].shape[1]
-        if not 0 <= cache_len <= max_seq - S:
-            raise ValueError(f"apply_attn: writing {S} tokens at {cache_len} overruns a cache of {max_seq}")
-        k_all, v_all = cache["k"].clone(), cache["v"].clone()
-        k_all[:, cache_len : cache_len + S] = k.to(k_all.dtype)
-        v_all[:, cache_len : cache_len + S] = v.to(v_all.dtype)
+        k_all = _cache_write(cache["k"], k, cache_len, "apply_attn")
+        v_all = _cache_write(cache["v"], v, cache_len, "apply_attn")
         new_cache = {"k": k_all, "v": v_all}
-        k_pos = torch.arange(max_seq, dtype=torch.int32, device=x.device)
+        k_pos = torch.arange(k_all.shape[1], dtype=torch.int32, device=x.device)
         out = _attend(q, k_all, v_all, k_pos=k_pos, k_len=cache_len + S, **kw)
     else:
         k_pos = positions if positions.ndim == 1 else positions[0]
         out = _attend(q, k, v, k_pos=k_pos, **kw)
     y = out.reshape(B, S, h * hd).to(x.dtype) @ p["wo"]
+    return y, new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (deepseek-v2 multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    d_model: int
+    n_heads: int
+    q_lora: int = 1536
+    kv_lora: int = 512
+    d_nope: int = 128
+    d_rope: int = 64
+    d_v: int = 128
+    rope_theta: float = 10_000.0
+
+
+def mla_defs(c: MLAConfig) -> Params:
+    h = c.n_heads
+    return {
+        "wq_a": pdef((c.d_model, c.q_lora), ("embed", None)),
+        "q_norm": rmsnorm_defs(c.q_lora),
+        "wq_b": pdef(
+            (c.q_lora, h * (c.d_nope + c.d_rope)), (None, "heads"),
+            granularity=(1, c.d_nope + c.d_rope),
+        ),
+        "wkv_a": pdef((c.d_model, c.kv_lora + c.d_rope), ("embed", None)),
+        "kv_norm": rmsnorm_defs(c.kv_lora),
+        "wk_b": pdef((c.kv_lora, h * c.d_nope), (None, "heads"), granularity=(1, c.d_nope)),
+        "wv_b": pdef((c.kv_lora, h * c.d_v), (None, "heads"), granularity=(1, c.d_v)),
+        "wo": pdef((h * c.d_v, c.d_model), ("heads", "embed"), granularity=(c.d_v, 1)),
+    }
+
+
+def apply_mla(
+    p: Params,
+    x: torch.Tensor,  # (B, S, d)
+    c: MLAConfig,
+    *,
+    positions: torch.Tensor,  # (S,) int absolute positions of x
+    cache: Optional[Dict[str, torch.Tensor]] = None,  # {"ckv": (B, S_max, kv_lora + d_rope)}
+    cache_len: Optional[int] = None,
+) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """Multi-head latent attention.  Only the normalized compressed KV and the
+    roped key part, packed as ``ckv``, are cached; each call expands the
+    whole cache into per-head keys and values.  RoPE touches only the
+    ``d_rope`` slices, the roped key is shared by every head, and the
+    softmax scale is 1 / sqrt(d_nope + d_rope): ``v`` is zero-padded to that
+    width for ``_attend`` and the output sliced back to ``d_v``."""
+    B, S, _ = x.shape
+    h, dq = c.n_heads, c.d_nope + c.d_rope
+    q = (apply_rmsnorm(p["q_norm"], x @ p["wq_a"]) @ p["wq_b"]).reshape(B, S, h, dq)
+    q = torch.cat([q[..., : c.d_nope], rope(q[..., c.d_nope :], positions, c.rope_theta)], dim=-1)
+
+    ckv_full = x @ p["wkv_a"]  # (B, S, kv_lora + d_rope)
+    ckv = apply_rmsnorm(p["kv_norm"], ckv_full[..., : c.kv_lora])
+    k_rope = rope(ckv_full[:, :, None, c.kv_lora :], positions, c.rope_theta)[:, :, 0, :]
+    packed = torch.cat([ckv, k_rope], dim=-1)
+
+    new_cache, k_len = None, None
+    if cache is not None:
+        packed = _cache_write(cache["ckv"], packed, cache_len, "apply_mla")
+        new_cache = {"ckv": packed}
+        k_len = cache_len + S
+
+    Sk = packed.shape[1]
+    ckv_all, k_rope_all = packed[..., : c.kv_lora], packed[..., c.kv_lora :]
+    k_nope = (ckv_all @ p["wk_b"]).reshape(B, Sk, h, c.d_nope)
+    v = (ckv_all @ p["wv_b"]).reshape(B, Sk, h, c.d_v)
+    k = torch.cat([k_nope, k_rope_all[:, :, None, :].expand(B, Sk, h, c.d_rope)], dim=-1)
+    out = _attend(q, k, F.pad(v, (0, dq - c.d_v)), q_pos=positions,
+                  k_pos=torch.arange(Sk, dtype=torch.int32, device=x.device),
+                  causal=True, window=None, cap=None, k_len=k_len)[..., : c.d_v]
+    y = out.reshape(B, S, h * c.d_v).to(x.dtype) @ p["wo"]
     return y, new_cache
 
 
@@ -270,6 +357,92 @@ def apply_ffn(p: Params, x: torch.Tensor, kind: str) -> torch.Tensor:
     if kind == "geglu":
         return (F.gelu(x @ p["w_gate"], approximate="tanh") * (x @ p["w_up"])) @ p["w_down"]
     return F.gelu(x @ p["w_in"] + p["b_in"], approximate="tanh") @ p["w_out"] + p["b_out"]
+
+
+# ---------------------------------------------------------------------------
+# MoE
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    expert_ff: int
+    n_shared: int = 0  # shared experts (deepseek-v2)
+    shared_ff: int = 0
+    dense_residual: bool = False  # parallel dense FFN branch (arctic)
+    dense_ff: int = 0
+    capacity_factor: float = 1.25
+
+
+def moe_defs(d: int, c: MoEConfig, ffn_kind: str = "swiglu") -> Params:
+    p: Params = {
+        "router": pdef((d, c.n_experts), ("embed", None), scale=0.1),
+        "w_gate": pdef((c.n_experts, d, c.expert_ff), ("experts", "embed", "ff")),
+        "w_up": pdef((c.n_experts, d, c.expert_ff), ("experts", "embed", "ff")),
+        "w_down": pdef((c.n_experts, c.expert_ff, d), ("experts", "ff", "embed")),
+    }
+    if c.n_shared > 0:
+        p["shared"] = ffn_defs(d, c.shared_ff or c.expert_ff * c.n_shared, ffn_kind)
+    if c.dense_residual:
+        p["dense"] = ffn_defs(d, c.dense_ff or c.expert_ff, ffn_kind)
+    return p
+
+
+def moe_route(p: Params, x: torch.Tensor, c: MoEConfig):
+    """The router of ``apply_moe``: ``(top_p, top_e, pos, cap)``.
+
+    ``top_p`` (B, S, k) float32 is the softmax over the experts of ``x @
+    router`` (the product in the activation dtype, then float32),
+    renormalized over the k chosen experts ``top_e`` (the k largest, the
+    lower index first among equals, as ``jax.lax.top_k``).  Each sequence
+    is a dispatch group with ``cap`` = max(k, int(capacity_factor k S / E))
+    places an expert; ``pos`` is each (token, slot) pair's place in its
+    expert's buffer, counted token-major and then by slot (the JAX package's
+    cumsum over the flattened (S k) axis).  A pair at ``pos >= cap`` is
+    dropped.  So a decode step (S = 1) drops nothing, and a prefill may."""
+    B, S, _ = x.shape
+    E, k = c.n_experts, c.top_k
+    probs = torch.softmax((x @ p["router"]).to(torch.float32), dim=-1)
+    top_p, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_p, top_e = top_p[..., :k], top_e[..., :k]
+    top_p = top_p / torch.sum(top_p, dim=-1, keepdim=True)
+    flat = top_e.reshape(B, S * k)
+    pos = torch.cumsum(F.one_hot(flat, E), dim=1).gather(-1, flat[..., None])[..., 0] - 1
+    return top_p, top_e, pos.reshape(B, S, k), max(k, int(c.capacity_factor * k * S / E))
+
+
+def apply_moe(p: Params, x: torch.Tensor, c: MoEConfig, ffn_kind: str = "swiglu") -> torch.Tensor:
+    """Top-k MoE with per-sequence capacity (``moe_route``), dispatched by
+    index: the kept pairs' rows of ``x`` are gathered, exactly, into a
+    (B, E, cap, d) buffer, the experts run as batched matmuls in the
+    activation dtype, and each token sums its kept pairs' expert outputs
+    weighted by ``top_p`` in float32, then casts.  The same numbers as the
+    JAX package's one-hot einsums, without their (B, S, k, E, cap)
+    tensors.  Shared experts and the dense branch add a plain FFN of ``x``."""
+    B, S, d = x.shape
+    E, k = c.n_experts, c.top_k
+    top_p, top_e, pos, cap = moe_route(p, x, c)
+    keep = pos < cap
+    # each pair's row in the (B, E cap + 1) buffer; dropped pairs go to the spare last row
+    slot = torch.where(keep, top_e * cap + pos, E * cap).reshape(B, S * k)
+    pair_token = torch.arange(S, device=x.device).repeat_interleave(k).expand(B, -1)
+    # the token each buffer row holds; S (a zero row) where no pair fills it
+    row_token = torch.full((B, E * cap + 1), S, dtype=torch.int64, device=x.device).scatter_(1, slot, pair_token)
+    xz = torch.cat([x, x.new_zeros(B, 1, d)], dim=1)
+    xe = torch.gather(xz, 1, row_token[:, : E * cap, None].expand(-1, -1, d))  # (B, E cap, d)
+    xe = xe.reshape(B, E, cap, d).transpose(0, 1).reshape(E, B * cap, d)
+    h = F.silu(torch.bmm(xe, p["w_gate"])) * torch.bmm(xe, p["w_up"])
+    ye = torch.bmm(h, p["w_down"]).reshape(E, B, cap, d).transpose(0, 1).reshape(B, E * cap, d)
+    ye = torch.cat([ye, ye.new_zeros(B, 1, d)], dim=1)  # the spare row: dropped pairs add 0
+    picked = torch.gather(ye, 1, slot[..., None].expand(-1, -1, d)).to(torch.float32).reshape(B, S, k, d)
+    y = torch.sum(picked * (top_p * keep)[..., None], dim=2).to(x.dtype)
+    if c.n_shared > 0:
+        y = y + apply_ffn(p["shared"], x, ffn_kind)
+    if c.dense_residual:
+        y = y + apply_ffn(p["dense"], x, ffn_kind)
+    return y
 
 
 # ---------------------------------------------------------------------------
@@ -359,4 +532,145 @@ def apply_rglru(
     new_cache = None
     if cache is not None:
         new_cache = {"h": h[:, -1, :].to(cache["h"].dtype), "conv": conv_state}
+    return y, new_cache
+
+
+# ---------------------------------------------------------------------------
+# xLSTM blocks
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class XLSTMConfig:
+    d_model: int
+    n_heads: int
+    expansion: int = 2  # mLSTM up-projection factor
+    chunk: int = 64  # the JAX package's chunk length; neither package's blocks read it
+
+
+def mlstm_defs(c: XLSTMConfig) -> Params:
+    d = c.d_model
+    di = c.expansion * d
+    return {
+        "w_up": pdef((d, 2 * di), ("embed", "ff")),
+        "wq": pdef((di, di), ("ff", None)),
+        "wk": pdef((di, di), ("ff", None)),
+        "wv": pdef((di, di), ("ff", None)),
+        "w_if": pdef((di, 2 * c.n_heads), ("ff", None), scale=0.1),  # i/f gate logits
+        "b_if": pdef((2 * c.n_heads,), (None,), init="zeros"),
+        "norm": rmsnorm_defs(di),
+        "w_down": pdef((di, d), ("ff", "embed")),
+    }
+
+
+def apply_mlstm(
+    p: Params,
+    x: torch.Tensor,  # (B, S, d)
+    c: XLSTMConfig,
+    *,
+    cache: Optional[Dict[str, torch.Tensor]] = None,  # {"C": (B, H, dh, dh), "n": (B, H, dh), "m": (B, H)}
+) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """mLSTM: a matrix memory per head with exponential input and sigmoid
+    forget gates, run as a time loop (JAX's ``lax.scan``) on float32 state.
+    Uncached, the stabilizer ``m`` starts at -1e30; a cache carries its own
+    (zeros in a fresh one, as in the JAX package, so a prefill into a fresh
+    cache is not the uncached forward).  The outer product v k^T is in the
+    activation dtype, the denominator max(|n . q|, 1)."""
+    B, S, d = x.shape
+    di = c.expansion * d
+    H = c.n_heads
+    dh = di // H
+    up = x @ p["w_up"]
+    u, z = up[..., :di], up[..., di:]
+    q = (u @ p["wq"]).reshape(B, S, H, dh)
+    k = (u @ p["wk"]).reshape(B, S, H, dh) / math.sqrt(dh)
+    v = (u @ p["wv"]).reshape(B, S, H, dh)
+    gates = (u @ p["w_if"] + p["b_if"]).to(torch.float32)  # (B, S, 2H)
+    log_i = gates[..., :H]  # exponential input gate (log space)
+    log_f = F.logsigmoid(gates[..., H:])  # forget gate
+
+    if cache is not None:
+        C, n, m = (cache[key].to(torch.float32) for key in ("C", "n", "m"))
+    else:
+        C = torch.zeros((B, H, dh, dh), dtype=torch.float32, device=x.device)
+        n = torch.zeros((B, H, dh), dtype=torch.float32, device=x.device)
+        m = torch.full((B, H), -1e30, dtype=torch.float32, device=x.device)
+    # the loop runs on (B, H, 1, 1) gates and stabilizer, (B, H, 1, dh) k and
+    # n, (B, H, dh, 1) v and q, so that its body indexes nothing
+    n, m = n[:, :, None, :], m[..., None, None]
+    q32 = q.to(torch.float32)
+    nums, ns = [], []
+    for li, lf, kt, vt, qt in zip(log_i[..., None, None].unbind(1), log_f[..., None, None].unbind(1),
+                                  k[:, :, :, None, :].unbind(1), v[..., None].unbind(1), q32[..., None].unbind(1)):
+        m_new = torch.maximum(lf + m, li)
+        fg = torch.exp(lf + m - m_new)
+        ig = torch.exp(li - m_new)
+        C = fg * C + ig * (vt * kt)  # the outer product v k^T in the activation dtype
+        n = fg * n + ig * kt
+        nums.append(C @ qt)
+        ns.append(n)
+        m = m_new
+    num = torch.stack(nums, dim=1)[..., 0]  # (B, S, H, dh)
+    den = torch.clamp(torch.abs(torch.sum(torch.stack(ns, dim=1)[:, :, :, 0, :] * q32, dim=-1)), min=1.0)
+    h = (num / den[..., None]).to(x.dtype).reshape(B, S, di)
+    n, m = n[:, :, 0, :], m[..., 0, 0]
+    h = apply_rmsnorm(p["norm"], h) * F.silu(z)
+    y = h @ p["w_down"]
+    new_cache = None
+    if cache is not None:
+        new_cache = {"C": C.to(cache["C"].dtype), "n": n.to(cache["n"].dtype), "m": m.to(cache["m"].dtype)}
+    return y, new_cache
+
+
+def slstm_defs(c: XLSTMConfig) -> Params:
+    d = c.d_model
+    H = c.n_heads
+    dh = d // H
+    return {
+        "w_gates": pdef((d, 4 * d), ("embed", "ff")),  # i, f, z, o pre-activations
+        "b_gates": pdef((4 * d,), (None,), init="zeros"),
+        "r_gates": pdef((H, dh, 4 * dh), (None, None, None), scale=0.5),  # block-diag recurrent
+        "norm": rmsnorm_defs(d),
+        "w_out": pdef((d, d), ("embed", None)),
+    }
+
+
+def apply_slstm(
+    p: Params,
+    x: torch.Tensor,  # (B, S, d)
+    c: XLSTMConfig,
+    *,
+    cache: Optional[Dict[str, torch.Tensor]] = None,  # {"c", "n", "m", "h"}: (B, d) each
+) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """sLSTM: scalar memory with block-diagonal (per-head) recurrent gate
+    weights, run as a time loop on float32 state; the recurrent product is
+    in the activation dtype.  ``m`` starts as in ``apply_mlstm``."""
+    B, S, d = x.shape
+    H = c.n_heads
+    dh = d // H
+    pre = x @ p["w_gates"] + p["b_gates"]  # (B, S, 4d)
+    if cache is not None:
+        cst, nst, mst, hst = (cache[key].to(torch.float32) for key in ("c", "n", "m", "h"))
+    else:
+        cst = nst = hst = torch.zeros((B, d), dtype=torch.float32, device=x.device)
+        mst = torch.full((B, d), -1e30, dtype=torch.float32, device=x.device)
+    hs = []
+    for pre_t in pre.unbind(1):
+        # per head (B, dh) @ (dh, 4 dh), laid out as the JAX package's einsum "bhd,hde->bhe"
+        rec = torch.bmm(hst.view(B, H, dh).transpose(0, 1).to(x.dtype), p["r_gates"]).transpose(0, 1)
+        gi, gf, gz, go = torch.chunk((pre_t + rec.reshape(B, 4 * d)).to(torch.float32), 4, dim=-1)
+        lf = F.logsigmoid(gf) + mst
+        m_new = torch.maximum(lf, gi)
+        ig = torch.exp(gi - m_new)
+        fg = torch.exp(lf - m_new)
+        cst = fg * cst + ig * torch.tanh(gz)
+        nst = fg * nst + ig
+        hst = torch.sigmoid(go) * cst / torch.clamp(nst, min=1.0)
+        mst = m_new
+        hs.append(hst)
+    h = torch.stack(hs, dim=1).to(x.dtype)  # (B, S, d)
+    y = apply_rmsnorm(p["norm"], h) @ p["w_out"]
+    new_cache = None
+    if cache is not None:
+        new_cache = {key: t.to(cache[key].dtype) for key, t in zip(("c", "n", "m", "h"), (cst, nst, mst, hst))}
     return y, new_cache

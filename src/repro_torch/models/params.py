@@ -73,11 +73,20 @@ def _leaves(tree):
     return [leaf for _, leaf in nn.tree_leaves_with_paths(tree)]
 
 
+# The most values ``materialize`` draws in one call.  A larger leaf is drawn
+# in flat chunks of this size, so that its float32 temporaries stay a few GB
+# (arctic-480b's stacked expert weights are 8.9e9 values a leaf at two
+# layers, 71 GB of float32 drawn at once).  RecurrentGemma-2B's largest
+# leaf, the 6.6e8-value embedding, is one chunk, drawn as one ``randn``.
+DRAW_MAX = 1 << 30
+
+
 def materialize(gen: Optional[torch.Generator], tree, dtype_override=None, device=None):
     """Tensors for a ``ParamDef`` tree, by the JAX package's per-leaf rule:
     zeros, ones, or ``normal * scale / sqrt(fan_in)`` with ``fan_in =
     shape[-2]`` (``shape[-1]`` for a vector), drawn in float32 from ``gen``
-    and cast to the leaf's dtype (or ``dtype_override``).
+    and cast to the leaf's dtype (or ``dtype_override``).  A leaf of more
+    than ``DRAW_MAX`` values is drawn chunk by chunk into its output.
 
     ``device=None`` means the GPU and raises without one; ``gen`` must live
     on the same device (``torch.Generator("cuda")``).  A tree of zeros and
@@ -95,7 +104,10 @@ def materialize(gen: Optional[torch.Generator], tree, dtype_override=None, devic
             return torch.ones(d.shape, dtype=dt, device=device)
         fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
         std = d.scale / math.sqrt(max(fan_in, 1))
-        return (std * torch.randn(d.shape, generator=gen, dtype=torch.float32, device=device)).to(dt)
+        out = torch.empty(d.shape, dtype=dt, device=device)
+        for chunk in out.view(-1).split(DRAW_MAX):
+            chunk.copy_(torch.randn(chunk.shape, generator=gen, dtype=torch.float32, device=device).mul_(std))
+        return out
 
     return nn.tree_map(make, tree)
 

@@ -9,15 +9,19 @@ Under autograd the uncached forward rematerializes each group by
 remats): ``"none"`` keeps every activation, ``"full"`` checkpoints the group
 (``torch.utils.checkpoint``), ``"dots"`` keeps the outputs of the unbatched
 matmuls (``aten.mm``, JAX's ``checkpoint_dots_with_no_batch_dims``) and
-recomputes the rest.  Block kinds ported so far:
+recomputes the rest.  Block kinds:
 
-  "attn"     global attention + FFN
+  "attn"     global attention + FFN           (internlm2, qwen3, deepseek-67b)
   "local"    sliding-window attention + FFN   (recurrentgemma, gemma2)
   "global"   global attention + FFN, gemma2 sandwich norms by name
+  "moe"      global attention + MoE           (arctic: + dense residual)
+  "mla"      MLA attention + dense FFN        (deepseek-v2 first layer)
+  "mla_moe"  MLA attention + MoE              (deepseek-v2)
   "rec"      RG-LRU recurrent block + FFN     (recurrentgemma)
+  "mlstm"/"slstm"  xLSTM blocks, mixer only (no FFN half; d_ff = 0)
 
-The other kinds (MoE, MLA, xLSTM, the whisper encoder-decoder) and the
-modality frontends raise ``NotImplementedError`` (ROADMAP queue 1, item 10).
+The whisper encoder-decoder kinds ("enc", "dec") and the modality
+frontends raise ``NotImplementedError`` (ROADMAP queue 1, item 10).
 Activations are pinned where the JAX package pins them
 (``sharding_ctx.constrain_batch`` after the embedding and each group, the
 vocab-parallel logits); without an installed mesh those are the identity.
@@ -40,7 +44,7 @@ from repro_torch.models.sharding_ctx import constrain, constrain_batch, get_mesh
 
 Params = Dict[str, Any]
 
-KINDS = ("attn", "local", "global", "rec")  # the block kinds the port has
+KINDS = ("attn", "local", "global", "moe", "mla", "mla_moe", "rec", "mlstm", "slstm")  # the block kinds the port has
 
 
 @dataclass(frozen=True)
@@ -63,12 +67,12 @@ class ModelConfig:
     final_softcap: Optional[float] = None
     window: Optional[int] = None
     rope_theta: float = 10_000.0
-    # families (MLA, MoE, xLSTM: not ported yet)
-    mla: Optional[Any] = None
-    moe: Optional[Any] = None
+    # families
+    mla: Optional[B.MLAConfig] = None
+    moe: Optional[B.MoEConfig] = None
     rnn_width: Optional[int] = None
     conv_width: int = 4
-    xlstm: Optional[Any] = None
+    xlstm: Optional[B.XLSTMConfig] = None
     # ffn / embeddings
     ffn_kind: str = "swiglu"
     tie_embeddings: bool = False
@@ -144,14 +148,25 @@ _SANDWICH = ("global", "local")  # gemma2-style pre+post norms
 def block_defs(cfg: ModelConfig, kind: str) -> Params:
     d = cfg.d_model
     p: Params = {"norm1": B.rmsnorm_defs(d)}
-    if kind in ("attn", "local", "global"):
+    if kind in ("attn", "local", "global", "moe"):
         p["attn"] = B.attn_defs(cfg.attn_cfg(kind))
+    elif kind in ("mla", "mla_moe"):
+        p["attn"] = B.mla_defs(cfg.mla)
     elif kind == "rec":
         p["rec"] = B.rglru_defs(cfg.rglru_cfg())
+    elif kind == "mlstm":
+        p["mix"] = B.mlstm_defs(cfg.xlstm)
+        return p  # xLSTM blocks: mixer only
+    elif kind == "slstm":
+        p["mix"] = B.slstm_defs(cfg.xlstm)
+        return p
     else:
         raise NotImplementedError(f"block kind {kind!r} is not ported yet (ROADMAP queue 1, item 10)")
     p["norm2"] = B.rmsnorm_defs(d)
-    p["ffn"] = B.ffn_defs(d, cfg.d_ff, cfg.ffn_kind)
+    if kind in ("moe", "mla_moe"):
+        p["moe"] = B.moe_defs(d, cfg.moe, cfg.ffn_kind)
+    else:
+        p["ffn"] = B.ffn_defs(d, cfg.d_ff, cfg.ffn_kind)
     if kind in _SANDWICH and cfg.name.startswith("gemma2"):
         p["post_norm1"] = B.rmsnorm_defs(d)
         p["post_norm2"] = B.rmsnorm_defs(d)
@@ -161,16 +176,29 @@ def block_defs(cfg: ModelConfig, kind: str) -> Params:
 def cache_defs(cfg: ModelConfig, kind: str, batch: int, max_seq: int) -> Params:
     """Decode-cache ParamDefs for one block (shapes + sharding axes).  A
     local-attention cache is a full ``max_seq`` buffer, as in the JAX package."""
-    if kind in ("attn", "global", "local"):
+    if kind in ("attn", "global", "local", "moe"):
         shp = (batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
         ax = ("batch", "act_seq", "kv", None)
         return {"k": pdef(shp, ax, init="zeros"), "v": pdef(shp, ax, init="zeros")}
+    if kind in ("mla", "mla_moe"):
+        m = cfg.mla
+        return {"ckv": pdef((batch, max_seq, m.kv_lora + m.d_rope), ("batch", "act_seq", None), init="zeros")}
     if kind == "rec":
         r = cfg.rnn_width or cfg.d_model
         return {
             "h": pdef((batch, r), ("batch", "ff"), init="zeros", dtype=torch.float32),
             "conv": pdef((batch, cfg.conv_width - 1, r), ("batch", None, "ff"), init="zeros"),
         }
+    if kind == "mlstm":
+        x = cfg.xlstm
+        dh = x.expansion * cfg.d_model // x.n_heads
+        return {
+            "C": pdef((batch, x.n_heads, dh, dh), ("batch", "heads", None, None), init="zeros", dtype=torch.float32),
+            "n": pdef((batch, x.n_heads, dh), ("batch", "heads", None), init="zeros", dtype=torch.float32),
+            "m": pdef((batch, x.n_heads), ("batch", None), init="zeros", dtype=torch.float32),
+        }
+    if kind == "slstm":
+        return {k: pdef((batch, cfg.d_model), ("batch", "ff"), init="zeros", dtype=torch.float32) for k in "cnmh"}
     raise NotImplementedError(f"block kind {kind!r} is not ported yet (ROADMAP queue 1, item 10)")
 
 
@@ -231,19 +259,30 @@ def apply_block(
 ) -> Tuple[torch.Tensor, Optional[Params]]:
     eps = cfg.norm_eps
     h = B.apply_rmsnorm(p["norm1"], x, eps)
-    if kind in ("attn", "local", "global"):
+    if kind in ("attn", "local", "global", "moe"):
         y, new_cache = B.apply_attn(p["attn"], h, cfg.attn_cfg(kind), positions=positions, cache=cache,
                                     cache_len=cache_len)
         if "post_norm1" in p:
             y = B.apply_rmsnorm(p["post_norm1"], y, eps)
+    elif kind in ("mla", "mla_moe"):
+        y, new_cache = B.apply_mla(p["attn"], h, cfg.mla, positions=positions, cache=cache, cache_len=cache_len)
     elif kind == "rec":
         y, new_cache = B.apply_rglru(p["rec"], h, cfg.rglru_cfg(), cache=cache)
+    elif kind == "mlstm":
+        y, new_cache = B.apply_mlstm(p["mix"], h, cfg.xlstm, cache=cache)
+        return x + y, new_cache
+    elif kind == "slstm":
+        y, new_cache = B.apply_slstm(p["mix"], h, cfg.xlstm, cache=cache)
+        return x + y, new_cache
     else:
         raise NotImplementedError(f"block kind {kind!r} is not ported yet (ROADMAP queue 1, item 10)")
     x = x + y
 
     h2 = B.apply_rmsnorm(p["norm2"], x, eps)
-    y2 = B.apply_ffn(p["ffn"], h2, cfg.ffn_kind)
+    if kind in ("moe", "mla_moe"):
+        y2 = B.apply_moe(p["moe"], h2, cfg.moe, cfg.ffn_kind)
+    else:
+        y2 = B.apply_ffn(p["ffn"], h2, cfg.ffn_kind)
     if "post_norm2" in p:
         y2 = B.apply_rmsnorm(p["post_norm2"], y2, eps)
     return x + y2, new_cache

@@ -40,7 +40,7 @@ from repro_torch.kernels.seg_gather import ops as seg_ops
 from repro_torch.kernels.rglru import ops as scan_ops
 from repro_torch.kernels.rglru.ref import linear_scan_ref
 from repro_torch.kernels.seg_gather.ref import gather_sum_ref, segment_sum_ref
-from repro_torch.models import params, steps, transformer
+from repro_torch.models import blocks, params, steps, transformer
 from repro_torch.placement.enumerate import sample_assignment_matrix
 from repro_torch.serve.estimator import CostEstimator
 
@@ -702,3 +702,69 @@ def test_dp_step_on_one_nccl_rank_matches_train_step(cuda, tmp_path):
         dist.destroy_process_group()
     for a, b in zip(nn.tree_leaves(state["params"]), nn.tree_leaves(want)):
         assert torch.equal(a, b)
+
+
+# -- the MoE and MLA blocks (deepseek-v2, arctic) --------------------------------------
+
+
+def _moe_case(case, device):
+    """An fp32 MoE block (16 experts, top-4, d 256) and a 64-token input.
+    ``overflow``: a bias feature and a router row that send every token's
+    first choice to expert 0, which takes 20 of its 64 pairs (capacity
+    max(4, int(1.25 * 4 * 64 / 16)) = 20)."""
+    kw = {"plain": {}, "shared": dict(n_shared=2, shared_ff=384), "dense_residual": dict(dense_residual=True, dense_ff=512),
+          "overflow": {}}[case]
+    c = blocks.MoEConfig(n_experts=16, top_k=4, expert_ff=192, **kw)
+    p = params.materialize(torch.Generator().manual_seed(40), blocks.moe_defs(256, c), torch.float32, "cpu")
+    x = torch.randn((2, 64, 256), generator=torch.Generator().manual_seed(41))
+    if case == "overflow":
+        x[..., 0] = 1.0
+        p["router"][0] = 0.0
+        p["router"][0, 0] = 8.0
+    return c, p, nn.to_device(p, device), x
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["plain", "shared", "dense_residual", "overflow"])
+def test_moe_block_on_card_matches_cpu(cuda, case):
+    """``apply_moe`` in fp32 on the card against the CPU from the same weights,
+    at a prefill (S = 64) and a decode step (S = 1): the same (token, slot)
+    pairs kept and dropped, outputs within 1e-5."""
+    c, p_cpu, p_dev, x = _moe_case(case, cuda)
+    for xs in (x, x[:, -1:]):
+        _, e_cpu, pos_cpu, cap = blocks.moe_route(p_cpu, xs, c)
+        _, e_dev, pos_dev, cap_dev = blocks.moe_route(p_dev, xs.to(cuda), c)
+        assert cap == cap_dev and torch.equal(e_dev.cpu(), e_cpu)
+        assert torch.equal((pos_dev < cap).cpu(), pos_cpu < cap)
+        if case == "overflow" and xs.shape[1] == 64:
+            assert int((pos_cpu >= cap).sum()) == 2 * (64 - cap)  # each sequence's tokens past 20 lose slot 0
+        torch.testing.assert_close(blocks.apply_moe(p_dev, xs.to(cuda), c).cpu(), blocks.apply_moe(p_cpu, xs, c),
+                                   rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("keys", [96, 1100])
+def test_mla_block_on_card_matches_cpu(cuda, keys):
+    """``apply_mla`` in fp32 on the card against the CPU: uncached, a prefill
+    into a ``keys``-position cache (the naive path, or the blocked one past
+    1024 keys) and 4 decode steps; outputs and the ``ckv`` cache within 1e-5."""
+    c = blocks.MLAConfig(d_model=256, n_heads=8, q_lora=96, kv_lora=64, d_nope=32, d_rope=16, d_v=32)
+    p_cpu = params.materialize(torch.Generator().manual_seed(42), blocks.mla_defs(c), torch.float32, "cpu")
+    p_dev = nn.to_device(p_cpu, cuda)
+    gen = torch.Generator().manual_seed(43)
+    n_prompt = keys - 8
+    x = torch.randn((2, n_prompt, 256), generator=gen)
+    pos = torch.arange(n_prompt)
+    want, _ = blocks.apply_mla(p_cpu, x, c, positions=pos)
+    got, _ = blocks.apply_mla(p_dev, x.to(cuda), c, positions=pos.to(cuda))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    caches = [{"ckv": torch.zeros((2, keys, 80), device=d)} for d in ("cpu", cuda)]
+    start, xs = 0, x
+    for _ in range(5):
+        ps = torch.arange(start, start + xs.shape[1])
+        want, caches[0] = blocks.apply_mla(p_cpu, xs, c, positions=ps, cache=caches[0], cache_len=start)
+        got, caches[1] = blocks.apply_mla(p_dev, xs.to(cuda), c, positions=ps.to(cuda), cache=caches[1], cache_len=start)
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(caches[1]["ckv"].cpu(), caches[0]["ckv"], rtol=1e-5, atol=1e-5)
+        start += xs.shape[1]
+        xs = torch.randn((2, 1, 256), generator=gen)

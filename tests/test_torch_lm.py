@@ -358,13 +358,19 @@ def test_configs_registry_matches_jax():
         assert dataclasses.astuple(configs.get_shape(s.name)) == dataclasses.astuple(s)
         for arch in jconfigs.ARCHS:
             assert configs.cell_supported(arch, configs.get_shape(s.name)) == jconfigs.cell_supported(arch, s)
-    for arch in set(jconfigs.ARCHS) - {"recurrentgemma-2b"}:
+    for arch in ("whisper-base", "internvl2-1b"):  # the encoder-decoder and the vision frontend
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             configs.get_config(arch)
+    for arch in set(jconfigs.ARCHS) - {"whisper-base", "internvl2-1b"}:
+        assert configs.get_config(arch).name == jconfigs.get_config(arch).name == arch
     with pytest.raises(KeyError):
         configs.get_config("no-such-arch")
+    rg = configs.get_config("recurrentgemma-2b")
+    for pattern in (("enc",), ("dec",)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            transformer.model_defs(dataclasses.replace(rg, pattern=pattern))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transformer.model_defs(dataclasses.replace(configs.get_config("recurrentgemma-2b"), pattern=("moe",)))
+        transformer.model_defs(dataclasses.replace(rg, frontend="vision"))
 
 
 def test_entry_points_run_on_the_card_unless_asked_otherwise():
