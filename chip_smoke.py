@@ -76,16 +76,30 @@ Each phase prints one JSON line:
            against the kernel; the scan's backward at (2, 2048, 2560) against the
            plain VJP within 1e-5 x max|plain|, both timed
   lm_archs one line an architecture for internlm2-1.8b, qwen3-8b, gemma2-2b,
-           deepseek-67b, arctic-480b, deepseek-v2-236b and xlstm-125m (LM_ARCHS):
-           one period of the layer pattern at the published widths in fp32 (the
-           MoE at capacity factor E / k, so that no pair drops), its cached path's
-           decode steps against the uncached forward; the reduced config in fp32 on
-           the card against the CPU; random bf16 weights at the published widths
-           (depth cut where the card cannot hold them: LM_ARCHS) serving 2 requests,
-           prompts prefilled into the cache (2048 tokens; gemma2's 4096-token
-           window) and 32 greedy decode steps: prefill and decode times, the device
-           split, the aten operators of a decode step, peak memory; none of the six
-           kernels launches on any of these paths
+           deepseek-67b, arctic-480b, deepseek-v2-236b, xlstm-125m, internvl2-1b and
+           whisper-base (LM_ARCHS): one period of the layer pattern at the published
+           widths in fp32 (the MoE at capacity factor E / k, so that no pair drops;
+           whisper one encoder and one decoder group over 1500 frames), its cached
+           path's decode steps against the uncached forward; the reduced config in
+           fp32 on the card against the CPU; random bf16 weights at the published
+           widths (depth cut where the card cannot hold them: LM_ARCHS) serving 2
+           requests, prompts prefilled into the cache (2048 tokens; gemma2's
+           4096-token window; internvl2 1024 seeded patch embeddings and 1024 tokens
+           through forward with the cache; whisper 1500 seeded frames through
+           run_encoder and cross_kv into the cache's cross-attention rows, then a
+           64-token prompt in a 448-position cache) and 32 greedy decode steps:
+           prefill and decode times, the device split, the aten operators of a decode
+           step, peak memory; none of the six kernels launches on any of these paths
+  lm_archs_train one line an architecture for the nine above (LM_ARCHS_TRAIN;
+           RecurrentGemma trains in lm_train): the reduced config in fp32, 3
+           make_train_step steps on the card against the CPU (loss and grad norm);
+           random bf16 weights at the published widths (depth cut where 22.6 B a
+           parameter pass the card; arctic-480b, whose one layer needs 163 GB, runs
+           the reduced check only), remat "full", Adam with fp32 moments, 2 x 2048
+           tokens (internvl2 1024 patch embeddings + 1024 tokens, whisper 1500 frames
+           + 448 tokens, xlstm 2 x 512): a warm step, 3 steps split into forward,
+           backward and optimizer, every loss and grad norm finite, tokens/s, peak
+           memory; none of the six kernels launches
 then the kernel summary line, the card's name and power limit, and the status
 line.  Any failure exits nonzero; so does a machine without a CUDA device, or
 a directory that holds this script and nothing else of the repository.
@@ -151,7 +165,8 @@ SIZES = {"traces": 4096, "many_batch": 512, "drain_structures": 16, "drain_candi
          "trad_cpu_graphs": 512, "ablation_epochs": 1, "flat_epochs": 4, "extrap_traces": 400, "extrap_epochs": 1,
          "finetune_traces": 600, "finetune_epochs": 2, "lm_train_batch": 2, "lm_train_steps": 5,
          "dp_int8_steps": 20, "archs_batch": 2, "archs_prompt": 2048, "archs_decode": 32,
-         "archs_check_prompt": 256, "archs_check_decode": 8}
+         "archs_check_prompt": 256, "archs_check_decode": 8, "whisper_prompt": 64, "whisper_context": 448,
+         "archs_train_batch": 2, "archs_train_seq": 2048, "archs_train_steps": 3}
 DEVICE = "cuda"
 #: The lm_archs phase's architectures, at their published widths.  Depth is
 #: cut (layer groups run) only where one 80 GB card cannot hold the bf16
@@ -164,6 +179,37 @@ LM_ARCHS = {
     "arctic-480b": 2,  # 2 of 35 layers, all 128 experts (13.6e9 parameters a layer): 54 GB + 0.9 GB
     "deepseek-v2-236b": 5,  # the dense MLA layer + 5 of 59 MLA-MoE layers, all 160 experts: 40 GB + 2.1 GB
     "xlstm-125m": None,  # 12 layers, 0.3 GB
+    "internvl2-1b": None,  # 24 layers, 1.3 GB
+    "whisper-base": None,  # 6 encoder + 6 decoder layers, 0.14 GB
+}
+#: The lm_archs_train phase's architectures: (layer groups trained, None for
+#: all, or why none train at full width; tokens a sequence, None for
+#: archs_train_seq).  A train step holds bf16 weights and gradients and two
+#: float32 Adam moments, 12 B a parameter, and while ``apply_update`` runs the
+#: new weights and moments sit beside the old: RecurrentGemma-2B's 2.895e9
+#: parameters peaked at 65.45e9 B in lm_train (NVIDIA H100 80GB HBM3, 700 W),
+#: 22.6 B a parameter.
+#: Depth is cut where 22.6 B x the parameters pass about 70e9 B of the card's
+#: 85e9 (the activations of 2 x 2048 positions under remat "full" come on top,
+#: and the Adam temporaries of the last large leaf: qwen3-8b and deepseek-67b
+#: as cut peaked at 75.7e9 and 75.4e9 B on the H100, so one more layer of
+#: either would not fit).
+LM_ARCHS_TRAIN = {
+    "internlm2-1.8b": (None, None),  # 1.889e9 x 22.6 B = 42.7 GB
+    "qwen3-8b": (9, None),  # all 36: 8.191e9 (98 GB at 12 B); 1.245e9 + 9 x 0.193e9 = 2.982e9 -> 67.4 GB
+    "deepseek-67b": (2, None),  # all 95: 67.4e9; 1.678e9 + 2 x 0.692e9 = 3.062e9 -> 69.2 GB
+    "gemma2-2b": (None, None),  # 2.614e9 -> 59.1 GB
+    # one layer is 13.611e9 parameters, 163 GB at 12 B: not even the state between steps fits
+    "arctic-480b": ("none: one layer's 13.611e9 parameters take 163 GB at 12 B (bf16 weight and gradient, "
+                    "two fp32 moments), above the card's 80 GB", None),
+    # 1.387e9 outside the MoE layers (embedding, head, the dense MLA layer) -> 31.3 GB; one MLA-MoE
+    # layer adds 3.972e9: 5.359e9 x 22.6 B = 121 GB (64.3 GB at 12 B before the update), so none
+    "deepseek-v2-236b": (0, None),
+    # 0.124e9 -> 2.8 GB.  Its lm_archs prefill of 2 x 2048 took 7.5 s on the H100, a time loop on
+    # the host; a step under remat "full" runs that loop forward twice and backward once: about 30 s
+    "xlstm-125m": (None, 512),
+    "internvl2-1b": (None, None),  # 0.630e9 -> 14.2 GB; 1024 patch embeddings + 1024 tokens
+    "whisper-base": (None, 448),  # 0.071e9 -> 1.6 GB; 1500 frames + 448 tokens, its text context
 }
 
 
@@ -1001,6 +1047,41 @@ def distributed_phase(params0, batch, cfg, opt, loop_cfg, counted, cuda_ms, time
     return out
 
 
+def split_train_step(cfg, tcfg, state, batch, mark=lambda: None):
+    """One ``make_train_step`` step in its three parts, the card synchronized
+    between them (the calls ``train_step`` makes): forward (``lm_loss``),
+    backward (``autograd.grad``), optimizer (the global norm and
+    ``apply_update``).  Returns the new state, the loss and the grad norm,
+    the parts' ms, and ``mark()`` read before the step and after each part."""
+    import numpy as np
+    import torch
+
+    from repro_torch import nn
+    from repro_torch.models import steps
+    from repro_torch.training import optim
+
+    torch.cuda.synchronize()
+    t, marks = [time.perf_counter()], [mark()]
+    live = nn.tree_map(lambda p: p.detach().requires_grad_(), state["params"])
+    loss = steps.lm_loss(live, cfg, batch)
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    marks.append(mark())
+    flat = list(torch.autograd.grad(loss, [leaf for _, leaf in nn.tree_leaves_with_paths(live)]))[::-1]
+    grads = nn.tree_map(lambda _: flat.pop(), state["params"])  # empties flat: no gradient outlives the step
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    marks.append(mark())
+    norm = optim.global_norm(grads)
+    params, opt_state = steps.apply_update(tcfg, grads, state["opt"], state["params"], norm)
+    new = {"params": params, "opt": opt_state, "step": state["step"] + 1}
+    del live, grads, params, opt_state
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    marks.append(mark())
+    return new, float(loss.detach()), float(norm), np.diff(t) * 1e3, marks
+
+
 def lm_train_phase(lm_cfg, weights, counted, cuda_ms, timed, card, costream):
     """RecurrentGemma-2B training on the card through ``make_train_step`` at
     full width and depth (``remat="full"``), from the lm phase's bf16 weights
@@ -1015,7 +1096,6 @@ def lm_train_phase(lm_cfg, weights, counted, cuda_ms, timed, card, costream):
     import numpy as np
     import torch
 
-    from repro_torch import nn
     from repro_torch.kernels.common import oracle_vjp
     from repro_torch.kernels.rglru import ops as scan_ops
     from repro_torch.kernels.rglru.ref import linear_scan_ref
@@ -1060,28 +1140,12 @@ def lm_train_phase(lm_cfg, weights, counted, cuda_ms, timed, card, costream):
     losses, norms = [float(m["loss"])], [float(m["grad_norm"])]
     parts, launches = [], []
     for _ in range(SIZES["lm_train_steps"]):
-        torch.cuda.synchronize()
-        t, c = [time.perf_counter()], [scan_ops.linear_scan.launches, reversed_calls[0]]
-        live = nn.tree_map(lambda p: p.detach().requires_grad_(), state["params"])
-        loss = steps.lm_loss(live, cfg, batch)
-        torch.cuda.synchronize()
-        t.append(time.perf_counter())
-        c.append(scan_ops.linear_scan.launches)
-        flat = list(torch.autograd.grad(loss, [leaf for _, leaf in nn.tree_leaves_with_paths(live)]))[::-1]
-        grads = nn.tree_map(lambda _: flat.pop(), state["params"])  # empties flat: no gradient outlives the step
-        torch.cuda.synchronize()
-        t.append(time.perf_counter())
-        c.append(scan_ops.linear_scan.launches)
-        norm = optim.global_norm(grads)
-        params, opt_state = steps.apply_update(tcfg, grads, state["opt"], state["params"], norm)
-        state = {"params": params, "opt": opt_state, "step": state["step"] + 1}
-        del live, grads, params, opt_state
-        torch.cuda.synchronize()
-        t.append(time.perf_counter())
-        parts.append(np.diff(t) * 1e3)
-        launches.append({"forward": c[2] - c[0], "backward": c[3] - c[2], "reversed": reversed_calls[0] - c[1]})
-        losses.append(float(loss.detach()))
-        norms.append(float(norm))
+        state, loss, norm, ms, c = split_train_step(cfg, tcfg, state, batch,
+                                                    lambda: (scan_ops.linear_scan.launches, reversed_calls[0]))
+        parts.append(ms)
+        launches.append({"forward": c[1][0] - c[0][0], "backward": c[2][0] - c[1][0], "reversed": c[3][1] - c[0][1]})
+        losses.append(loss)
+        norms.append(norm)
     fwd, bwd, upd = np.median(np.asarray(parts), axis=0)
     out["step"] = {"forward_ms": fwd, "backward_ms": bwd, "optimizer_ms": upd, "step_ms": fwd + bwd + upd,
                    "warm_step_ms": warm_ms, "timed_steps": len(parts), "tokens_per_s": B * S / ((fwd + bwd + upd) / 1e3),
@@ -1144,18 +1208,91 @@ def lm_train_phase(lm_cfg, weights, counted, cuda_ms, timed, card, costream):
     return out
 
 
+def frontend_inputs(cfg, batch, length, dtype, seed, frames=None):
+    """A prompt of ``length`` positions on the card: (tokens (batch, T) int32,
+    the frontend input).  A vision model's first ``length // 2`` positions
+    are seeded patch embeddings (``vis_embeds``), the rest tokens; an
+    encoder-decoder's ``length`` tokens come with ``frames`` seeded frames,
+    by default ``ENC_LEN``: exactly the decode cache's cross-attention rows
+    (fewer leave zero rows that the decoder attends, as in the JAX package)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.transformer import ENC_LEN
+
+    gen = torch.Generator(DEVICE).manual_seed(seed)
+    extra = {}
+    if cfg.frontend == "vision":
+        extra["vis_embeds"] = torch.randn((batch, length // 2, cfg.d_model), generator=gen, device=DEVICE).to(dtype)
+        length -= length // 2
+    elif cfg.frontend == "audio":
+        extra["frames"] = torch.randn((batch, frames or ENC_LEN, cfg.d_model), generator=gen, device=DEVICE).to(dtype)
+    tokens = np.random.default_rng(seed).integers(0, cfg.vocab, (batch, length)).astype(np.int32)
+    return torch.as_tensor(tokens, device=DEVICE), extra
+
+
+def fill_cross(w, cfg, cache, frames):
+    """A copy of the decode cache ``cache`` whose ``xk`` / ``xv`` hold the
+    encoded ``frames`` in their first rows: ``run_encoder``, then one
+    ``cross_kv`` per decoder layer, stacked along the layers axis."""
+    import torch
+
+    from repro_torch import nn
+    from repro_torch.models.blocks import cross_kv
+    from repro_torch.models.transformer import run_encoder
+
+    with torch.no_grad():
+        enc = run_encoder(w, cfg, frames)
+        groups = dict(cache["groups"])
+        for i, kind in enumerate(cfg.pattern):
+            if kind != "dec":
+                continue
+            kvs = [cross_kv(nn.tree_map(lambda t: t[g], w["groups"][f"b{i}"]["cross"]), enc, cfg.cross_cfg())
+                   for g in range(cfg.n_groups)]
+            block = dict(groups[f"b{i}"])
+            for key, name in (("xk", "k"), ("xv", "v")):
+                new = torch.stack([kv[name] for kv in kvs]).to(block[key].dtype)
+                block[key] = torch.cat([new, block[key][:, :, new.shape[2]:]], dim=2)
+            groups[f"b{i}"] = block
+    return dict(cache, groups=groups)
+
+
+def lm_prefill(step, w, cfg, cache, tokens, extra):
+    """A prompt prefilled into the decode cache as a user of the port does it:
+    a vision prompt through ``forward`` with the cache (the serving step takes
+    tokens only, as in the JAX package), an encoder-decoder's frames into its
+    cross-attention rows (``fill_cross``) and then its tokens through
+    ``serve_step``, any other prompt through ``serve_step``.  Returns
+    (logits, cache, the greedy next token, the positions now cached)."""
+    import torch
+
+    from repro_torch.models.transformer import forward
+
+    if "vis_embeds" in extra:
+        with torch.no_grad():
+            logits, cache = forward(w, cfg, tokens, vis_embeds=extra["vis_embeds"], cache=cache, cache_len=0)
+        return logits, cache, torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)[:, None], logits.shape[1]
+    if "frames" in extra:
+        cache = fill_cross(w, cfg, cache, extra["frames"])
+    logits, cache, nxt = step(w, cache, tokens, 0)
+    return logits, cache, nxt, tokens.shape[1]
+
+
 def lm_archs_phase(counted, timed, device_split, aten_ops, card, kernels):
     """Each architecture of ``LM_ARCHS`` served through ``make_serve_step`` on
     the card, one JSON line an architecture.  First one period of its layer
-    pattern (a dense prefix once) at the published widths in float32: the
-    cached path (a prefill, then greedy decode steps) against the uncached
-    ``forward`` of the same tokens within ``LM_RTOL``.  Then the reduced
-    config in float32, card against CPU: the uncached forward, a prefill and
-    decode steps with every cache leaf.  Then random bf16 weights at the
-    published widths, cut in depth as ``LM_ARCHS`` says: a prefill of
-    ``archs_batch`` prompts into the cache and ``archs_decode`` greedy
-    decode steps, timed, profiled and checked for finite logits of the
-    right shape.  None of ``kernels`` may launch on any of these paths."""
+    pattern (a dense prefix once; whisper one encoder and one decoder group)
+    at the published widths in float32: the cached path (a prefill, then
+    greedy decode steps) against the uncached ``forward`` of the same
+    prompt within ``LM_RTOL``.  Then the reduced config in float32, card
+    against CPU: the uncached forward, a prefill and decode steps with every
+    cache leaf.  Then random bf16 weights at the published widths, cut in
+    depth as ``LM_ARCHS`` says: a prefill of ``archs_batch`` prompts into the
+    cache (``lm_prefill``; internvl2: 1024 patch embeddings and 1024 tokens,
+    whisper: 1500 frames encoded, then a 64-token prompt into a 448-position
+    cache) and ``archs_decode`` greedy decode steps, timed, profiled and
+    checked for finite logits of the right shape.  None of ``kernels`` may
+    launch on any of these paths."""
     import numpy as np
     import torch
 
@@ -1197,29 +1334,29 @@ def lm_archs_phase(counted, timed, device_split, aten_ops, card, kernels):
         # on its length S, so at the published factor a decode step (S = 1, nothing dropped)
         # may differ from the long uncached forward's position.  A factor of E / k gives
         # capacity S: no pair is dropped on either path, and every decode step is held.
-        period = dataclasses.replace(full, n_groups=1)
+        period = dataclasses.replace(full, n_groups=1, enc_groups=min(full.enc_groups, 1))
         if moe:
             period = dataclasses.replace(
                 period, moe=dataclasses.replace(full.moe, capacity_factor=full.moe.n_experts / full.moe.top_k))
         P, n = SIZES["archs_check_prompt"], SIZES["archs_check_decode"]
         torch.cuda.reset_peak_memory_stats()
         w = materialize(torch.Generator(DEVICE).manual_seed(1), model_defs(period), torch.float32, DEVICE)
-        toks = torch.as_tensor(np.random.default_rng(1).integers(0, period.vocab, (B, P)).astype(np.int32), device=dev)
+        toks, extra = frontend_inputs(period, B, P, torch.float32, 1)
         step = make_serve_step(period, device=DEVICE)
 
         def check():
-            lg, cache, nxt = step(w, materialize(None, model_cache_defs(period, B, P + n), torch.float32, DEVICE),
-                                  toks, 0)
+            empty = materialize(None, model_cache_defs(period, B, P + n), torch.float32, DEVICE)
+            lg, cache, nxt, pos = lm_prefill(step, w, period, empty, toks, extra)
             got, fed = [lg], []
             for i in range(n):
                 fed.append(nxt)
-                lg, cache, nxt = step(w, cache, nxt, P + i)
+                lg, cache, nxt = step(w, cache, nxt, pos + i)
                 got.append(lg)
             with torch.no_grad():
-                want, _ = forward(w, period, torch.cat([toks, torch.cat(fed, 1)], 1))
-            pairs = [(g, want[:, P + i : P + i + 1]) for i, g in enumerate(got[1:])]
+                want, _ = forward(w, period, torch.cat([toks, torch.cat(fed, 1)], 1), **extra)
+            pairs = [(g, want[:, pos + i : pos + i + 1]) for i, g in enumerate(got[1:])]
             if full.xlstm is None:
-                pairs.append((got[0], want[:, :P]))
+                pairs.append((got[0], want[:, :pos]))
             # xLSTM: a fresh cache starts the stabilizer m at 0 where the uncached forward
             # starts it at -1e30, and the denominator max(|n . q|, 1) then differs at the
             # first positions (the JAX package's semantics); the forget gates decay that
@@ -1229,33 +1366,43 @@ def lm_archs_phase(counted, timed, device_split, aten_ops, card, kernels):
         pairs = quiet(f"lm_archs_check:{arch}", check)
         rec["full_width_fp32"] = {
             "layers": period.n_layers(), "params": count_params(model_defs(period)), "prompt": P, "decode_steps": n,
+            **{k: v.shape[1] for k, v in extra.items()},
             "compared": "decode steps" if full.xlstm else "prefill and decode steps",
             "capacity_factor": period.moe.capacity_factor if moe else None,
             "max_abs_err": max_diff(pairs), "max_abs_logit": max(float(b.abs().max()) for _, b in pairs),
             "rtol_atol": LM_RTOL, "ok": agree(pairs), "peak_bytes": int(torch.cuda.max_memory_allocated())}
-        del w, pairs, step
+        del w, pairs, step, extra
         torch.cuda.empty_cache()
 
-        # 2. the reduced config in float32, card against CPU
+        # 2. the reduced config in float32, card against CPU (vision: 6 patch embeddings
+        # and 6 tokens; whisper: 12 tokens over 16 frames, whose sinusoid angles stay
+        # small: the card's and the host's exp may round a frequency apart, and an
+        # angle of 1500 rad moves 1500 times that)
         r_cfg = reduced(published)
         r_cpu = materialize(torch.Generator().manual_seed(1), model_defs(r_cfg), torch.float32, "cpu")
         r_dev = nn.to_device(r_cpu, dev)
-        r_toks = np.random.default_rng(1).integers(0, r_cfg.vocab, (2, 12)).astype(np.int32)
+        r_toks, r_extra = frontend_inputs(r_cfg, 2, 12, torch.float32, 1, frames=16)
+        r_host = (r_toks.cpu(), {k: v.cpu() for k, v in r_extra.items()})
 
         def reduced_pairs():
             with torch.no_grad():
-                want, _ = forward(r_cpu, r_cfg, torch.as_tensor(r_toks))
-                got, _ = forward(r_dev, r_cfg, torch.as_tensor(r_toks, device=dev))
+                want, _ = forward(r_cpu, r_cfg, r_host[0], **r_host[1])
+                got, _ = forward(r_dev, r_cfg, r_toks, **r_extra)
             pairs = [(got, want)]
-            caches = [materialize(None, model_cache_defs(r_cfg, 2, 24), torch.float32, d) for d in ("cpu", DEVICE)]
-            steps_ = make_serve_step(r_cfg, device="cpu"), make_serve_step(r_cfg, device=DEVICE)
-            toks_, pos = r_toks, 0
-            for _ in range(7):  # a 12-token prefill, 6 decode steps
-                want, caches[0], nxt = steps_[0](r_cpu, caches[0], toks_, pos)
-                got, caches[1], _ = steps_[1](r_dev, caches[1], toks_, pos)
-                pairs += list(zip([got] + leaves(caches[1]), [want] + leaves(caches[0])))
-                pos += toks_.shape[1]
-                toks_ = nxt.numpy()
+            runs = {}  # device -> [weights, step, logits, cache, next token]: a 12-position prefill
+            for d, w_, (t_, e_) in (("cpu", r_cpu, r_host), (DEVICE, r_dev, (r_toks, r_extra))):
+                step_ = make_serve_step(r_cfg, device=d)
+                lg, cache, nxt, pos = lm_prefill(step_, w_, r_cfg, materialize(None, model_cache_defs(r_cfg, 2, 24),
+                                                                                torch.float32, d), t_, e_)
+                runs[d] = [w_, step_, lg, cache, nxt]
+            for i in range(7):  # the prefill, then 6 decode steps, the card fed the CPU's greedy tokens
+                if i:
+                    nxt = runs["cpu"][4]
+                    for run in runs.values():
+                        run[2], run[3], run[4] = run[1](run[0], run[3], nxt, pos)
+                    pos += 1
+                card, host = runs[DEVICE], runs["cpu"]
+                pairs += list(zip([card[2]] + leaves(card[3]), [host[2]] + leaves(host[3])))
             return pairs
 
         pairs = quiet(f"lm_archs_reduced:{arch}", reduced_pairs)
@@ -1266,49 +1413,55 @@ def lm_archs_phase(counted, timed, device_split, aten_ops, card, kernels):
         # 3. bf16 at the published widths, cut in depth: prefill, then greedy decode
         cfg = full if cut is None else dataclasses.replace(full, n_groups=min(cut, full.n_groups))
         defs = model_defs(cfg)
-        P = max(SIZES["archs_prompt"], cfg.window or 0)
+        P = SIZES["whisper_prompt"] if cfg.enc_pattern else max(SIZES["archs_prompt"], cfg.window or 0)
+        max_seq = SIZES["whisper_context"] if cfg.enc_pattern else P + n_dec
         rec["model"] = {"layers": cfg.n_layers(), "layers_published": published.n_layers(),
                         "params": count_params(defs), "params_published": count_params(model_defs(published)),
                         "d_model": cfg.d_model, "vocab": cfg.vocab, "dtype": "bfloat16",
                         "cut": None if cut is None else f"{cfg.n_groups} of {published.n_groups} groups of {cfg.pattern}"
                         + (f" after the prefix {cfg.prefix}" if cfg.prefix else "")}
-        rec.update({"requests": B, "prompt": P, "decode_steps": n_dec, "max_seq": P + n_dec})
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         w = materialize(torch.Generator(DEVICE).manual_seed(0), defs, device=DEVICE)
         torch.cuda.synchronize()
         rec["init_s"] = time.perf_counter() - t0
-        prompts = np.random.default_rng(0).integers(0, cfg.vocab, (B, P)).astype(np.int32)
+        prompts, extra = frontend_inputs(cfg, B, P, torch.bfloat16, 0)
+        rec.update({"requests": B, "prompt": P, **{k: v.shape[1] for k, v in extra.items()},
+                    "decode_steps": n_dec, "max_seq": max_seq})
         step = make_serve_step(cfg, device=DEVICE)
-        empty = materialize(None, model_cache_defs(cfg, B, P + n_dec), device=DEVICE)
+        empty = materialize(None, model_cache_defs(cfg, B, max_seq), device=DEVICE)
 
-        def prefill():
-            return step(w, empty, prompts, 0)
+        def prefill(upto=None):
+            return lm_prefill(step, w, cfg, empty, prompts[:, :upto], extra)
 
-        (logits, prefilled, first), rec["prefill_ms_first"] = quiet(f"lm_archs_prefill:{arch}", lambda: timed(prefill))
-        well_formed(f"{arch} prefill", logits, (B, P, cfg.vocab))
+        (logits, prefilled, first, pos), rec["prefill_ms_first"] = quiet(f"lm_archs_prefill:{arch}",
+                                                                         lambda: timed(prefill))
+        well_formed(f"{arch} prefill", logits, (B, pos, cfg.vocab))
         del logits
         rec["prefill_ms"] = quiet(f"lm_archs_prefill:{arch}", lambda: timed(prefill))[1]
+        if extra.get("frames") is not None:  # the encoder and the cross-attention rows alone
+            rec["encode_ms"] = quiet(f"lm_archs_prefill:{arch}",
+                                     lambda: timed(lambda: fill_cross(w, cfg, empty, extra["frames"])))[1]
         # an xLSTM prefill is a time loop of some 250 kernels a position; the profiler
         # reads 2048 positions' worth for minutes, so its split is taken over the
         # fp32 check's prompt length: the same loop, shorter
         rec["prefill_profile_prompt"] = P if full.xlstm is None else SIZES["archs_check_prompt"]
-        rec["prefill_profile"] = device_split(lambda: step(w, empty, prompts[:, : rec["prefill_profile_prompt"]], 0))
+        rec["prefill_profile"] = device_split(lambda: prefill(rec["prefill_profile_prompt"]))
         cache, tok, dec_ms = prefilled, first, []
         for i in range(n_dec):
-            (lg, cache, tok), ms = quiet(f"lm_archs_decode:{arch}", lambda: timed(lambda: step(w, cache, tok, P + i)))
+            (lg, cache, tok), ms = quiet(f"lm_archs_decode:{arch}", lambda: timed(lambda: step(w, cache, tok, pos + i)))
             well_formed(f"{arch} decode step {i}", lg, (B, 1, cfg.vocab))
             dec_ms.append(ms)
         rest = dec_ms[1:] or dec_ms
         rec["decode_ms_first"] = dec_ms[0]
         rec["decode_ms"] = {"mean": float(np.mean(rest)), "min": min(rest), "max": max(rest), "steps": len(rest)}
         rec["tokens_per_s"] = {"prefill": B * P / (rec["prefill_ms"] / 1e3), "decode": B / (rec["decode_ms"]["mean"] / 1e3)}
-        rec["last_position"] = P + n_dec - 1
-        rec["decode_profile"] = device_split(lambda: step(w, prefilled, first, P))
-        rec["decode_aten_ops"] = aten_ops(lambda: step(w, prefilled, first, P))
+        rec["last_position"] = pos + n_dec - 1
+        rec["decode_profile"] = device_split(lambda: step(w, prefilled, first, pos))
+        rec["decode_aten_ops"] = aten_ops(lambda: step(w, prefilled, first, pos))
         rec["max_memory_allocated_bytes"] = int(torch.cuda.max_memory_allocated())
-        del w, empty, prefilled, cache, lg, step
+        del w, empty, prefilled, cache, lg, step, extra
         torch.cuda.empty_cache()
         rec["seconds"] = time.perf_counter() - t_arch
         emit(rec)
@@ -1316,6 +1469,138 @@ def lm_archs_phase(counted, timed, device_split, aten_ops, card, kernels):
         bad = [k for k in ("full_width_fp32", "reduced_card_vs_cpu") if not rec[k]["ok"]]
         if bad:
             raise AssertionError(f"lm_archs {arch}: {bad} disagree ({[rec[k]['max_abs_err'] for k in bad]})")
+    return out
+
+
+def lm_archs_train_phase(counted, timed, card, kernels):
+    """Each architecture of ``LM_ARCHS_TRAIN`` trained through
+    ``make_train_step`` on the card, one JSON line an architecture.  First the
+    reduced config in float32: 3 steps on the card against the same 3 on the
+    CPU, loss and grad norm within ``LM_RTOL``.  Then random bf16 weights at
+    the published widths, cut in depth as ``LM_ARCHS_TRAIN`` says, the
+    config's own remat (``"full"``), Adam with float32 moments, a batch of
+    ``archs_train_batch`` sequences (internvl2: 1024 patch embeddings and
+    1024 tokens; whisper: 1500 frames and 448 tokens): a warm step, then
+    ``archs_train_steps`` steps split into forward, backward and optimizer
+    (``split_train_step``), each loss and grad norm finite; tokens/s and peak
+    memory.  None of ``kernels`` may launch on any of these paths."""
+    import numpy as np
+    import torch
+
+    from repro_torch import nn
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import steps
+    from repro_torch.models.params import count_params, materialize
+    from repro_torch.models.transformer import model_defs
+
+    B, n_steps = SIZES["archs_train_batch"], SIZES["archs_train_steps"]
+    tcfg = steps.TrainStepConfig()
+    out = []
+
+    def quiet(path, fn):
+        return counted(path, fn, (), kernels)[0]
+
+    def fresh(cfg, params, device):
+        step, opt = steps.make_train_step(cfg, tcfg, device=device)
+        return step, {"params": params, "opt": opt.init(params),
+                      "step": torch.zeros((), dtype=torch.int32, device=device)}
+
+    def close(a, b):
+        return abs(a - b) <= LM_RTOL + LM_RTOL * abs(b)
+
+    for arch, (groups, seq) in LM_ARCHS_TRAIN.items():
+        t_arch = time.perf_counter()
+        published = get_config(arch)
+        full = reduced(published) if SIZES["lm_reduced"] else published  # a CPU dry run of the control flow
+        rec = {"phase": "lm_archs_train", "arch": arch, "card": card,
+               "optimizer": dataclasses.asdict(tcfg) | {"moment_dtype": str(tcfg.moment_dtype)}}
+
+        # 1. the reduced config in float32: 3 steps on the card against the CPU
+        r_cfg = reduced(published)
+        r_params = materialize(torch.Generator().manual_seed(2), model_defs(r_cfg), torch.float32, "cpu")
+        toks, extra = frontend_inputs(r_cfg, 2, 16, torch.float32, 2, frames=16)
+        r_batch = {"tokens": toks, **extra}
+
+        def reduced_runs():
+            runs = {}
+            for d in ("cpu", DEVICE):
+                step, state = fresh(r_cfg, nn.to_device(r_params, torch.device(d)), d)
+                batch = {k: v.to(d) for k, v in r_batch.items()}
+                runs[d] = []
+                for _ in range(3):
+                    state, m = step(state, batch)
+                    runs[d].append([float(m["loss"]), float(m["grad_norm"])])
+            return runs["cpu"], runs[DEVICE]
+
+        cpu, got = quiet(f"lm_archs_train_reduced:{arch}", reduced_runs)
+        rec["reduced_card_vs_cpu"] = {
+            "layers": r_cfg.n_layers(), "steps": 3, "loss": [g[0] for g in got], "loss_cpu": [c[0] for c in cpu],
+            "grad_norm": [g[1] for g in got], "grad_norm_cpu": [c[1] for c in cpu], "rtol_atol": LM_RTOL,
+            "ok": all(close(a, b) for g, c in zip(got, cpu) for a, b in zip(g, c))}
+        del r_params
+
+        # 2. bf16 at the published widths, cut in depth
+        if isinstance(groups, str):
+            rec["model"] = {"layers_published": published.n_layers(), "params_published":
+                            count_params(model_defs(published)), "trained": False, "cut": groups}
+        else:
+            cfg = full if groups is None else dataclasses.replace(full, n_groups=min(groups, full.n_groups))
+            defs = model_defs(cfg)
+            rec["model"] = {"layers": cfg.n_layers(), "layers_published": published.n_layers(),
+                            "params": count_params(defs), "params_published": count_params(model_defs(published)),
+                            "remat": cfg.remat, "dtype": "bfloat16", "trained": True,
+                            "cut": None if groups is None else
+                            f"{cfg.n_groups} of {published.n_groups} groups of {cfg.pattern}"
+                            + (f" after the prefix {cfg.prefix}" if cfg.prefix else "")}
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            train_step, state = fresh(cfg, materialize(torch.Generator(DEVICE).manual_seed(0), defs, device=DEVICE),
+                                      DEVICE)
+            torch.cuda.synchronize()
+            rec["init_s"] = time.perf_counter() - t0
+            S = seq or SIZES["archs_train_seq"]
+            toks, extra = frontend_inputs(cfg, B, S, torch.bfloat16, 0)
+            batch = {"tokens": toks, **extra}
+            positions = toks.shape[1] + (extra["vis_embeds"].shape[1] if "vis_embeds" in extra else 0)
+            rec.update({"batch": B, "tokens": toks.shape[1], "positions": positions,
+                        **{k: v.shape[1] for k, v in extra.items()}})
+            (state, m), warm_ms = quiet(f"lm_archs_train_step:{arch}", lambda: timed(lambda: train_step(state, batch)))
+            losses, norms = [float(m["loss"])], [float(m["grad_norm"])]
+            del m
+
+            def split_steps():
+                nonlocal state
+                parts = []
+                for _ in range(n_steps):
+                    state, loss, norm, ms, _ = split_train_step(cfg, tcfg, state, batch)
+                    parts.append(ms)
+                    losses.append(loss)
+                    norms.append(norm)
+                return parts
+
+            parts = quiet(f"lm_archs_train_step:{arch}", split_steps)
+            fwd, bwd, upd = np.median(np.asarray(parts), axis=0)
+            step_s = (fwd + bwd + upd) / 1e3
+            rec["step"] = {"forward_ms": fwd, "backward_ms": bwd, "optimizer_ms": upd, "step_ms": step_s * 1e3,
+                           "warm_step_ms": warm_ms, "timed_steps": len(parts),
+                           "tokens_per_s": B * toks.shape[1] / step_s, "positions_per_s": B * positions / step_s}
+            rec["losses"], rec["grad_norms"] = losses, norms
+            rec["max_memory_allocated_bytes"] = int(torch.cuda.max_memory_allocated())
+            rec["max_memory_reserved_bytes"] = int(torch.cuda.max_memory_reserved())
+            del state, batch, extra, train_step
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            if not (np.isfinite(losses).all() and np.isfinite(norms).all()):
+                emit(rec)
+                raise AssertionError(f"lm_archs_train {arch}: losses {losses}, grad norms {norms}")
+        rec["seconds"] = time.perf_counter() - t_arch
+        emit(rec)
+        out.append(rec)
+        if not rec["reduced_card_vs_cpu"]["ok"]:
+            raise AssertionError(f"lm_archs_train {arch}: the reduced steps on the card and the CPU part "
+                                 f"({rec['reduced_card_vs_cpu']})")
     return out
 
 
@@ -2234,7 +2519,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     lm_archs_phase(counted, timed, device_split, aten_ops, card, costream + ("linear_scan",))
 
-    # -- 12. kernel summary (the representative case: the most work on the path) ------
+    # -- 12. lm_archs_train: the nine architectures through make_train_step ----------
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    lm_archs_train_phase(counted, timed, card, costream + ("linear_scan",))
+
+    # -- 13. kernel summary (the representative case: the most work on the path) ------
     sources = {
         "banked_mlp": ("src/repro_torch/csrc/banked_mlp.cu", "src/repro/kernels/banked_mlp/kernel.py:53"),
         "mp_update": ("src/repro_torch/csrc/mp_update.cu", "src/repro/kernels/mp_update/kernel.py:64"),
@@ -2261,7 +2551,7 @@ def main() -> int:
                         "backward_launches_per_train_step": backward[name]["launches_per_step"] if name in backward else 0})
     emit({"kernels": summary})
 
-    # -- 13. the card, 14. status ---------------------------------------------------
+    # -- 14. the card, 15. status ---------------------------------------------------
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

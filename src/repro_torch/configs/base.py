@@ -7,10 +7,9 @@ Shapes (identical for every LM arch):
   decode_32k   seq 32,768  global_batch 128   serve_step (1 new token)
   long_500k    seq 524,288 global_batch 1     serve_step; SSM/hybrid only
 
-``get_config`` raises for the two architectures whose blocks the port does
-not have yet (``whisper-base``'s encoder-decoder, ``internvl2-1b``'s vision
-frontend).  The JAX package's ``input_specs`` serves its dry-run only and is
-not ported.
+``get_config`` answers for every architecture of ``ARCHS``.  The JAX
+package's ``input_specs`` serves its dry-run only and is not ported yet
+(ROADMAP queue 1, item 10d).
 """
 
 from __future__ import annotations
@@ -36,7 +35,6 @@ ARCHS = (
     "whisper-base",
 )
 
-# the architectures the port has a config for (their blocks are ported)
 _MODULES = {
     "internlm2-1.8b": "internlm2_1_8b",
     "qwen3-8b": "qwen3_8b",
@@ -45,7 +43,9 @@ _MODULES = {
     "recurrentgemma-2b": "recurrentgemma_2b",
     "arctic-480b": "arctic_480b",
     "deepseek-v2-236b": "deepseek_v2_236b",
+    "internvl2-1b": "internvl2_1b",
     "xlstm-125m": "xlstm_125m",
+    "whisper-base": "whisper_base",
 }
 
 # archs whose decode state is sub-quadratic in context (run long_500k)
@@ -78,11 +78,6 @@ def get_shape(name: str) -> ShapeSpec:
 def get_config(arch: str) -> ModelConfig:
     if arch not in ARCHS:
         raise KeyError(arch)
-    if arch not in _MODULES:
-        raise NotImplementedError(
-            f"{arch}: its encoder-decoder or vision frontend is not ported yet; the port has configs for "
-            f"{sorted(_MODULES)} (ROADMAP queue 1, item 10)"
-        )
     return importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}").config()
 
 

@@ -3,13 +3,14 @@
 Every block has a ``*_defs(cfg)`` (a ``ParamDef`` tree with the JAX
 package's key paths and sharding axes) and an ``apply_*`` function on
 tensors: RMSNorm, RoPE, softcap; self-attention (GQA/MQA, qk-norm,
-softcaps, sliding window) uncached and into a decode cache, with the naive
-and the blocked online-softmax paths; MLA with its compressed KV cache
+softcaps, sliding window, bidirectional for the whisper encoder) uncached
+and into a decode cache, with the naive and the blocked online-softmax
+paths; cross-attention over an encoder's output or its cached keys and
+values (whisper); MLA with its compressed KV cache
 (deepseek-v2); the SwiGLU / GeGLU / GELU FFNs; the top-k MoE with per-sequence
 capacity, shared experts and a dense residual branch (arctic, deepseek-v2);
 the RG-LRU recurrent block (RecurrentGemma / Griffin), whose linear
 recurrence runs the ``rglru`` kernel; the mLSTM and sLSTM blocks (xLSTM).
-Cross-attention (whisper) is not ported yet (ROADMAP queue 1, item 10).
 
 Dtypes follow the JAX package: matmuls in the activation dtype, norms,
 attention softmax, the MoE router's softmax and combine, RG-LRU gates and
@@ -86,7 +87,7 @@ class AttnConfig:
     window: Optional[int] = None  # sliding-window size; None = global
     causal: bool = True
     rope_theta: float = 10_000.0
-    cross: bool = False  # cross-attention (kv from encoder output): not ported yet
+    cross: bool = False  # cross-attention (kv from encoder output)
 
 
 def attn_defs(c: AttnConfig) -> Params:
@@ -158,8 +159,12 @@ def _attend_blocked(
     block: int = ATTN_BLOCK,
 ) -> torch.Tensor:
     """Flash-style online-softmax attention over k-chunks of ``block`` keys:
-    never materializes the (Sq, Sk) logits.  Padded keys sit at position
-    ``2**30``, which every causal or length mask drops."""
+    never materializes the (Sq, Sk) logits.  Sk is zero-padded to a multiple
+    of ``block``, the padded keys at position ``2**30``: a causal or a length
+    mask drops them, but with neither (the whisper encoder, cross-attention)
+    they stay in the softmax, each a logit of 0 over a zero value, as in the
+    JAX package's ``_attend_blocked``.  So there this path differs from the
+    naive one (1,500 keys carry 548 padded ones)."""
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     rep = H // KV
@@ -220,38 +225,65 @@ def apply_attn(
     c: AttnConfig,
     *,
     positions: torch.Tensor,  # (S,) int absolute positions of x
+    kv_source: Optional[torch.Tensor] = None,  # (B, S_enc, d) cross-attention source
     cache: Optional[Dict[str, torch.Tensor]] = None,  # {"k","v"} (B, S_max, KV, D)
     cache_len: Optional[int] = None,  # tokens already cached
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Self-attention, uncached or into a decode cache (prefill: ``cache_len``
     0 and S prompt tokens; decode: S = 1).  The cache is not written in
-    place: the new one is returned (``_cache_write``)."""
-    if c.cross:
-        raise NotImplementedError("cross-attention is not ported yet (ROADMAP queue 1, item 10)")
+    place: the new one is returned (``_cache_write``).
+
+    Cross-attention (``c.cross``) takes its keys and values from
+    ``kv_source`` uncached, or reads the cached encoder keys and values
+    (``cross_kv``) over all their rows, with no length mask, and returns the
+    cache unchanged.  It applies no RoPE and no causal mask."""
     B, S, _ = x.shape
     h, kv, hd = c.n_heads, c.n_kv_heads, c.head_dim
     q = (x @ p["wq"]).reshape(B, S, h, hd)
-    k = (x @ p["wk"]).reshape(B, S, kv, hd)
-    v = (x @ p["wv"]).reshape(B, S, kv, hd)
+    k = v = None
+    if not (c.cross and cache is not None):  # a cached cross-attention reads the encoder's kv
+        src = kv_source if c.cross else x
+        if src is None:
+            raise ValueError("apply_attn: an uncached cross-attention needs kv_source")
+        k = (src @ p["wk"]).reshape(B, src.shape[1], kv, hd)
+        v = (src @ p["wv"]).reshape(B, src.shape[1], kv, hd)
     if c.qk_norm:
         q = apply_rmsnorm(p["q_norm"], q)
-        k = apply_rmsnorm(p["k_norm"], k)
-    q = rope(q, positions, c.rope_theta)
-    k = rope(k, positions, c.rope_theta)
+        if k is not None:
+            k = apply_rmsnorm(p["k_norm"], k)
+    if not c.cross:
+        q = rope(q, positions, c.rope_theta)
+        k = rope(k, positions, c.rope_theta)
 
     new_cache = None
-    kw = dict(q_pos=positions, causal=c.causal, window=c.window, cap=c.attn_softcap)
-    if cache is not None:
+    kw = dict(q_pos=positions, cap=c.attn_softcap)
+    if cache is not None and not c.cross:
         k_all = _cache_write(cache["k"], k, cache_len, "apply_attn")
         v_all = _cache_write(cache["v"], v, cache_len, "apply_attn")
         new_cache = {"k": k_all, "v": v_all}
         k_pos = torch.arange(k_all.shape[1], dtype=torch.int32, device=x.device)
-        out = _attend(q, k_all, v_all, k_pos=k_pos, k_len=cache_len + S, **kw)
+        out = _attend(q, k_all, v_all, k_pos=k_pos, causal=c.causal, window=c.window, k_len=cache_len + S, **kw)
+    elif cache is not None:
+        k_pos = torch.arange(cache["k"].shape[1], dtype=torch.int32, device=x.device)
+        out = _attend(q, cache["k"], cache["v"], k_pos=k_pos, causal=False, window=None, **kw)
+        new_cache = cache
     else:
-        k_pos = positions if positions.ndim == 1 else positions[0]
-        out = _attend(q, k, v, k_pos=k_pos, **kw)
+        if c.cross:
+            k_pos = torch.arange(src.shape[1], dtype=torch.int32, device=x.device)
+        else:
+            k_pos = positions if positions.ndim == 1 else positions[0]
+        out = _attend(q, k, v, k_pos=k_pos, causal=c.causal and not c.cross, window=c.window, **kw)
     y = out.reshape(B, S, h * hd).to(x.dtype) @ p["wo"]
     return y, new_cache
+
+
+def cross_kv(p: Params, enc_out: torch.Tensor, c: AttnConfig) -> Dict[str, torch.Tensor]:
+    """The cross-attention keys and values of an encoder output (B, S_enc, d),
+    computed once for a decode cache: ``{"k", "v"}`` (B, S_enc, KV, D)."""
+    B, S, _ = enc_out.shape
+    k = (enc_out @ p["wk"]).reshape(B, S, c.n_kv_heads, c.head_dim)
+    v = (enc_out @ p["wv"]).reshape(B, S, c.n_kv_heads, c.head_dim)
+    return {"k": k, "v": v}
 
 
 # ---------------------------------------------------------------------------

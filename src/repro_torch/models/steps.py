@@ -5,8 +5,12 @@ entropy, gradients, Adam(W) with global-norm clipping.  ``make_serve_step``
 builds the cached step: prefill a batch of prompts into the decode cache
 (``cache_len=0``, S prompt tokens) or decode one token per request.
 ``make_prefill_step`` runs a prompt once without a cache, under
-``torch.no_grad`` as the serving step does.  Each runs on the GPU unless the
-caller asks for ``device="cpu"``.
+``torch.no_grad`` as the serving step does.  A batch holds ``tokens`` and,
+for a vision model, ``vis_embeds`` (B, V, d) or, for an encoder-decoder,
+``frames`` (B, S_enc, d); the serving step takes tokens only, as in the JAX
+package (a vision prompt is prefilled through ``transformer.forward`` with
+the cache, an encoder-decoder's cache filled by ``blocks.cross_kv``).  Each
+runs on the GPU unless the caller asks for ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -24,11 +28,17 @@ from repro_torch.training import optim
 Params = Dict[str, Any]
 
 
-def _tokens(tokens, device: torch.device) -> torch.Tensor:
-    """Token ids as a tensor on ``device``; a host array is copied, never aliased."""
-    if isinstance(tokens, torch.Tensor):
-        return tokens.to(device)
-    return torch.tensor(np.asarray(tokens), device=device)
+def _on(x, device: torch.device) -> torch.Tensor:
+    """An input (token ids, patch embeddings, frames) as a tensor on
+    ``device``; a host array is copied, never aliased."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    return torch.tensor(np.asarray(x), device=device)
+
+
+def _frontend(batch: Dict[str, Any], device: torch.device) -> Dict[str, Optional[torch.Tensor]]:
+    """``vis_embeds`` and ``frames`` of ``batch`` (None where absent) as tensors on ``device``."""
+    return {k: None if batch.get(k) is None else _on(batch[k], device) for k in ("vis_embeds", "frames")}
 
 
 def _check_params(params: Params, device: torch.device) -> None:
@@ -39,14 +49,6 @@ def _check_params(params: Params, device: torch.device) -> None:
 
 def _leaves(tree):
     return [leaf for _, leaf in nn.tree_leaves_with_paths(tree)]
-
-
-def _token_only(batch: Dict[str, Any], who: str) -> None:
-    if batch.keys() - {"tokens"}:
-        raise NotImplementedError(
-            f"{who}: inputs {sorted(batch.keys() - {'tokens'})} need a modality frontend, "
-            "not ported yet (ROADMAP queue 1, item 10)"
-        )
 
 
 # -- training ------------------------------------------------------------------------
@@ -65,10 +67,14 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
 
 def lm_loss(params: Params, cfg: ModelConfig, batch: Dict[str, Any]) -> torch.Tensor:
     """Next-token prediction loss of ``batch["tokens"]`` (B, S), a tensor or a
-    host array (copied to the parameters' device)."""
-    _token_only(batch, "lm_loss")
-    tokens = _tokens(batch["tokens"], params["embed"].device)
-    logits, _ = forward(params, cfg, tokens)
+    host array (copied to the parameters' device), within the token region:
+    the logits of a ``vis_embeds`` prefix are dropped."""
+    device = params["embed"].device
+    tokens = _on(batch["tokens"], device)
+    extra = _frontend(batch, device)
+    logits, _ = forward(params, cfg, tokens, **extra)
+    if extra["vis_embeds"] is not None:
+        logits = logits[:, extra["vis_embeds"].shape[1] :, :]
     return cross_entropy(logits[:, :-1, :], tokens[:, 1:])
 
 
@@ -155,7 +161,7 @@ def make_serve_step(cfg: ModelConfig, device=None):
 
     def serve_step(params: Params, cache: Params, tokens, cache_len: int):
         _check_params(params, device)
-        tokens = _tokens(tokens, device)
+        tokens = _on(tokens, device)
         with torch.no_grad():
             logits, new_cache = forward(params, cfg, tokens, cache=cache, cache_len=cache_len)
         next_tok = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)[:, None]
@@ -165,15 +171,14 @@ def make_serve_step(cfg: ModelConfig, device=None):
 
 
 def make_prefill_step(cfg: ModelConfig, device=None):
-    """Prefill without a cache: (params, {"tokens": (B, S)}) -> the last
-    position's logits (B, 1, V) float32."""
+    """Prefill without a cache: (params, {"tokens": (B, S)[, "vis_embeds" |
+    "frames"]}) -> the last position's logits (B, 1, V) float32."""
     device = nn.resolve_device(device, "prefill_step")
 
     def prefill_step(params: Params, batch: Dict[str, Any]):
         _check_params(params, device)
-        _token_only(batch, "prefill_step")
         with torch.no_grad():
-            logits, _ = forward(params, cfg, _tokens(batch["tokens"], device))
+            logits, _ = forward(params, cfg, _on(batch["tokens"], device), **_frontend(batch, device))
         return logits[:, -1:, :]
 
     return prefill_step

@@ -1,4 +1,4 @@
-"""Decoder-only transformer assembly (port of ``repro/models/transformer.py``).
+"""Transformer assembly for the ten architectures (port of ``repro/models/transformer.py``).
 
 A model is a prefix + a repeated group pattern + a suffix of *blocks*.  The
 group parameters (and caches) are stacked along a leading ``layers`` axis, as
@@ -11,7 +11,8 @@ remats): ``"none"`` keeps every activation, ``"full"`` checkpoints the group
 matmuls (``aten.mm``, JAX's ``checkpoint_dots_with_no_batch_dims``) and
 recomputes the rest.  Block kinds:
 
-  "attn"     global attention + FFN           (internlm2, qwen3, deepseek-67b)
+  "attn"     global attention + FFN           (internlm2, qwen3, deepseek-67b,
+                                               internvl2 backbone)
   "local"    sliding-window attention + FFN   (recurrentgemma, gemma2)
   "global"   global attention + FFN, gemma2 sandwich norms by name
   "moe"      global attention + MoE           (arctic: + dense residual)
@@ -19,16 +20,23 @@ recomputes the rest.  Block kinds:
   "mla_moe"  MLA attention + MoE              (deepseek-v2)
   "rec"      RG-LRU recurrent block + FFN     (recurrentgemma)
   "mlstm"/"slstm"  xLSTM blocks, mixer only (no FFN half; d_ff = 0)
+  "enc"      bidirectional attention + FFN    (whisper encoder)
+  "dec"      causal self-attn + cross-attn + FFN (whisper decoder)
 
-The whisper encoder-decoder kinds ("enc", "dec") and the modality
-frontends raise ``NotImplementedError`` (ROADMAP queue 1, item 10).
-Activations are pinned where the JAX package pins them
-(``sharding_ctx.constrain_batch`` after the embedding and each group, the
-vocab-parallel logits); without an installed mesh those are the identity.
+The frontends are stubs, as in the JAX package: a vision model takes
+precomputed patch embeddings (``vis_embeds``, a prefix before the tokens),
+an audio model precomputed frame embeddings (``frames``, the encoder's
+input).  An encoder-decoder adds sinusoidal positions to the encoder's
+frames and to the decoder's tokens and applies RoPE in every
+self-attention as well: the JAX package's whisper backbone.  Activations
+are pinned where the JAX package pins them (``sharding_ctx.constrain_batch``
+after the embedding and each group, the vocab-parallel logits); without an
+installed mesh those are the identity.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 from dataclasses import dataclass
@@ -44,7 +52,8 @@ from repro_torch.models.sharding_ctx import constrain, constrain_batch, get_mesh
 
 Params = Dict[str, Any]
 
-KINDS = ("attn", "local", "global", "moe", "mla", "mla_moe", "rec", "mlstm", "slstm")  # the block kinds the port has
+# the decode cache's cross-attention rows: whisper's native encoder frames
+ENC_LEN = 1500
 
 
 @dataclass(frozen=True)
@@ -78,13 +87,13 @@ class ModelConfig:
     tie_embeddings: bool = False
     emb_scale: bool = False
     norm_eps: float = 1e-6
-    # enc-dec (whisper): not ported yet
+    # enc-dec (whisper): encoder stack runs first; None = decoder-only
     enc_pattern: Optional[Tuple[str, ...]] = None
     enc_groups: int = 0
     enc_positions: str = "rope"  # rope | sinusoidal
-    # modality frontend: not ported yet
+    # modality frontend stub
     frontend: str = "none"  # none | vision | audio
-    vis_len: int = 0
+    vis_len: int = 0  # visual prefix length (vlm)
     # rematerialization of each layer group under autograd: none | full | dots
     remat: str = "full"
     # run the rglru linear-scan kernel inside RG-LRU blocks
@@ -115,6 +124,9 @@ class ModelConfig:
             cross=False,
         )
 
+    def cross_cfg(self) -> B.AttnConfig:
+        return dataclasses.replace(self.attn_cfg("dec"), cross=True, causal=False)
+
     def rglru_cfg(self) -> B.RGLRUConfig:
         return B.RGLRUConfig(
             d_model=self.d_model,
@@ -123,18 +135,6 @@ class ModelConfig:
             use_kernel=self.use_rglru_kernel,
             block_diag_gates=self.rg_blockdiag,
             n_gate_blocks=self.n_heads if self.rg_blockdiag else 1,
-        )
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a configuration the port cannot run yet."""
-    kinds = set(cfg.prefix) | set(cfg.pattern if cfg.n_groups else ()) | set(cfg.suffix)
-    missing = sorted(kinds - set(KINDS))
-    if missing or cfg.enc_pattern or cfg.frontend != "none" or cfg.enc_positions != "rope":
-        raise NotImplementedError(
-            f"{cfg.name}: block kinds {missing or 'ok'}, encoder {cfg.enc_pattern}, frontend "
-            f"{cfg.frontend!r}, positions {cfg.enc_positions!r}; the port has the decoder-only "
-            f"kinds {KINDS} with RoPE (ROADMAP queue 1, item 10)"
         )
 
 
@@ -148,7 +148,7 @@ _SANDWICH = ("global", "local")  # gemma2-style pre+post norms
 def block_defs(cfg: ModelConfig, kind: str) -> Params:
     d = cfg.d_model
     p: Params = {"norm1": B.rmsnorm_defs(d)}
-    if kind in ("attn", "local", "global", "moe"):
+    if kind in ("attn", "local", "global", "moe", "enc", "dec"):
         p["attn"] = B.attn_defs(cfg.attn_cfg(kind))
     elif kind in ("mla", "mla_moe"):
         p["attn"] = B.mla_defs(cfg.mla)
@@ -161,7 +161,10 @@ def block_defs(cfg: ModelConfig, kind: str) -> Params:
         p["mix"] = B.slstm_defs(cfg.xlstm)
         return p
     else:
-        raise NotImplementedError(f"block kind {kind!r} is not ported yet (ROADMAP queue 1, item 10)")
+        raise ValueError(f"block kind {kind!r}")
+    if kind == "dec":
+        p["norm_c"] = B.rmsnorm_defs(d)
+        p["cross"] = B.attn_defs(cfg.cross_cfg())
     p["norm2"] = B.rmsnorm_defs(d)
     if kind in ("moe", "mla_moe"):
         p["moe"] = B.moe_defs(d, cfg.moe, cfg.ffn_kind)
@@ -175,11 +178,18 @@ def block_defs(cfg: ModelConfig, kind: str) -> Params:
 
 def cache_defs(cfg: ModelConfig, kind: str, batch: int, max_seq: int) -> Params:
     """Decode-cache ParamDefs for one block (shapes + sharding axes).  A
-    local-attention cache is a full ``max_seq`` buffer, as in the JAX package."""
-    if kind in ("attn", "global", "local", "moe"):
-        shp = (batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
-        ax = ("batch", "act_seq", "kv", None)
+    local-attention cache is a full ``max_seq`` buffer, as in the JAX package;
+    a decoder block's also holds the cross-attention keys and values ``xk`` /
+    ``xv`` at ``ENC_LEN`` rows, whatever the number of frames (``cross_kv``
+    fills them; fewer frames leave zero rows that are attended)."""
+    shp = (batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    ax = ("batch", "act_seq", "kv", None)
+    if kind in ("attn", "global", "local", "moe", "enc"):
         return {"k": pdef(shp, ax, init="zeros"), "v": pdef(shp, ax, init="zeros")}
+    if kind == "dec":
+        xshp = (batch, ENC_LEN, cfg.n_kv_heads, cfg.head_dim)
+        return {"k": pdef(shp, ax, init="zeros"), "v": pdef(shp, ax, init="zeros"),
+                "xk": pdef(xshp, ax, init="zeros"), "xv": pdef(xshp, ax, init="zeros")}
     if kind in ("mla", "mla_moe"):
         m = cfg.mla
         return {"ckv": pdef((batch, max_seq, m.kv_lora + m.d_rope), ("batch", "act_seq", None), init="zeros")}
@@ -199,12 +209,11 @@ def cache_defs(cfg: ModelConfig, kind: str, batch: int, max_seq: int) -> Params:
         }
     if kind == "slstm":
         return {k: pdef((batch, cfg.d_model), ("batch", "ff"), init="zeros", dtype=torch.float32) for k in "cnmh"}
-    raise NotImplementedError(f"block kind {kind!r} is not ported yet (ROADMAP queue 1, item 10)")
+    raise ValueError(f"block kind {kind!r}")
 
 
 def model_defs(cfg: ModelConfig) -> Params:
     """Full parameter tree (ParamDefs) for a model config."""
-    check_supported(cfg)
     d, v = cfg.d_model, cfg.vocab
     p: Params = {
         "embed": pdef((v, d), ("vocab", "embed"), scale=1.0),
@@ -212,6 +221,10 @@ def model_defs(cfg: ModelConfig) -> Params:
     }
     if not cfg.tie_embeddings:
         p["head"] = pdef((d, v), ("embed", "vocab"))
+    if cfg.enc_pattern:
+        p["enc_groups"] = _stack_defs({f"b{i}": block_defs(cfg, k) for i, k in enumerate(cfg.enc_pattern)},
+                                      cfg.enc_groups)
+        p["enc_norm"] = B.rmsnorm_defs(d)
     if cfg.prefix:
         p["prefix"] = [block_defs(cfg, k) for k in cfg.prefix]
     if cfg.n_groups > 0:
@@ -229,7 +242,6 @@ def _stack_defs(tree: Params, n: int) -> Params:
 
 
 def model_cache_defs(cfg: ModelConfig, batch: int, max_seq: int) -> Params:
-    check_supported(cfg)
     c: Params = {}
     if cfg.prefix:
         c["prefix"] = [cache_defs(cfg, k, batch, max_seq) for k in cfg.prefix]
@@ -256,14 +268,28 @@ def apply_block(
     positions: torch.Tensor,
     cache: Optional[Params] = None,
     cache_len: Optional[int] = None,
+    enc_out: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Optional[Params]]:
+    """One block.  A decoder block (``"dec"``) attends over ``enc_out``
+    uncached, and over its cache's ``xk`` / ``xv`` cached, which it carries
+    into the new cache unchanged (``enc_out`` is then not read)."""
     eps = cfg.norm_eps
     h = B.apply_rmsnorm(p["norm1"], x, eps)
-    if kind in ("attn", "local", "global", "moe"):
-        y, new_cache = B.apply_attn(p["attn"], h, cfg.attn_cfg(kind), positions=positions, cache=cache,
+    if kind in ("attn", "local", "global", "moe", "enc", "dec"):
+        sub = None if cache is None else {"k": cache["k"], "v": cache["v"]}
+        y, new_cache = B.apply_attn(p["attn"], h, cfg.attn_cfg(kind), positions=positions, cache=sub,
                                     cache_len=cache_len)
         if "post_norm1" in p:
             y = B.apply_rmsnorm(p["post_norm1"], y, eps)
+        if kind == "dec":
+            x = x + y
+            hc = B.apply_rmsnorm(p["norm_c"], x, eps)
+            if cache is None:
+                y, _ = B.apply_attn(p["cross"], hc, cfg.cross_cfg(), positions=positions, kv_source=enc_out)
+            else:
+                y, _ = B.apply_attn(p["cross"], hc, cfg.cross_cfg(), positions=positions,
+                                    cache={"k": cache["xk"], "v": cache["xv"]})
+                new_cache = dict(new_cache, xk=cache["xk"], xv=cache["xv"])
     elif kind in ("mla", "mla_moe"):
         y, new_cache = B.apply_mla(p["attn"], h, cfg.mla, positions=positions, cache=cache, cache_len=cache_len)
     elif kind == "rec":
@@ -275,7 +301,7 @@ def apply_block(
         y, new_cache = B.apply_slstm(p["mix"], h, cfg.xlstm, cache=cache)
         return x + y, new_cache
     else:
-        raise NotImplementedError(f"block kind {kind!r} is not ported yet (ROADMAP queue 1, item 10)")
+        raise ValueError(f"block kind {kind!r}")
     x = x + y
 
     h2 = B.apply_rmsnorm(p["norm2"], x, eps)
@@ -316,6 +342,17 @@ def _remat(fn, policy: str):
 # ---------------------------------------------------------------------------
 
 
+def _sinusoidal(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """(S, d) float32: sin then cos of each position times d / 2 frequencies
+    from 1 down to 1 / 10000 (the JAX package's spacing, ``/ (half - 1)``)."""
+    pos = positions.to(torch.float32)[:, None]
+    half = d // 2
+    freq = torch.exp(-math.log(10000.0) * torch.arange(half, dtype=torch.float32, device=positions.device)
+                     / max(half - 1, 1))
+    ang = pos * freq
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 def embed_tokens(params: Params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
     x = params["embed"][tokens]
     if cfg.emb_scale:
@@ -341,52 +378,91 @@ def unembed(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return logits
 
 
+def run_encoder(params: Params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
+    """The whisper encoder over pre-embedded frames (B, S_enc, d), in the
+    weights' dtype (the conv frontend is a stub): sinusoidal positions, the
+    ``enc_groups`` (rematerialized by ``cfg.remat`` under autograd), then
+    ``enc_norm``."""
+    S = frames.shape[1]
+    positions = torch.arange(S, dtype=torch.int32, device=frames.device)
+    x = constrain_batch(frames)
+    if cfg.enc_positions == "sinusoidal":
+        x = x + _sinusoidal(positions, cfg.d_model)[None].to(x.dtype)
+
+    def group_fn(x, gp):
+        for i, kind in enumerate(cfg.enc_pattern):
+            x, _ = apply_block(gp[f"b{i}"], x, kind, cfg, positions=positions)
+        return constrain_batch(x)
+
+    group = _remat(group_fn, cfg.remat) if torch.is_grad_enabled() else group_fn
+    for gi in range(cfg.enc_groups):
+        x = group(x, _tree_slice(params["enc_groups"], gi))
+    return B.apply_rmsnorm(params["enc_norm"], x, cfg.norm_eps)
+
+
 def forward(
     params: Params,
     cfg: ModelConfig,
     tokens: torch.Tensor,  # (B, S) int
     *,
+    vis_embeds: Optional[torch.Tensor] = None,  # (B, V, d) vlm prefix
+    frames: Optional[torch.Tensor] = None,  # (B, S_enc, d) whisper encoder input
     cache: Optional[Params] = None,
     cache_len: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Optional[Params]]:
-    """Returns (logits (B, S, V) float32, new_cache).  Uncached: ``cache=None``.
-    Cached (prefill into the cache, or decode): the S tokens sit at positions
-    ``cache_len .. cache_len + S - 1`` and the new cache is returned; the
-    caller's cache is not modified."""
-    check_supported(cfg)
-    x = constrain_batch(embed_tokens(params, cfg, tokens))
+    """Returns (logits (B, V + S, V_vocab) float32, new_cache).  Uncached:
+    ``cache=None``.  Cached (prefill into the cache, or decode): the V + S
+    positions sit at ``cache_len .. cache_len + V + S - 1`` and the new cache
+    is returned; the caller's cache is not modified.
+
+    ``vis_embeds`` go before the token embeddings, cast to their dtype.  An
+    encoder-decoder runs its encoder over ``frames``; its uncached forward
+    needs them, its cached one reads the encoder's keys and values from the
+    cache (``cross_kv``), so frames given there are encoded and not read, as
+    in the JAX package."""
+    x = embed_tokens(params, cfg, tokens)
+    if vis_embeds is not None:
+        x = torch.cat([vis_embeds.to(x.dtype), x], dim=1)
+    x = constrain_batch(x)
     S = x.shape[1]
     start = 0 if cache_len is None else int(cache_len)
     positions = torch.arange(start, start + S, dtype=torch.int32, device=x.device)
+    if cfg.enc_positions == "sinusoidal":
+        x = x + _sinusoidal(positions, cfg.d_model)[None].to(x.dtype)
+    enc_out = None
+    if cfg.enc_pattern and frames is not None:
+        enc_out = run_encoder(params, cfg, frames)
+    elif cfg.enc_pattern and cache is None:
+        raise ValueError(f"{cfg.name}: the uncached forward of an encoder-decoder needs frames")
 
-    def run(p, x, kind, c):
-        return apply_block(p, x, kind, cfg, positions=positions, cache=c, cache_len=start)
+    def run(p, x, kind, c, enc_out):
+        return apply_block(p, x, kind, cfg, positions=positions, cache=c, cache_len=start, enc_out=enc_out)
 
     new_cache: Params = {}
     for i, kind in enumerate(cfg.prefix):
-        x, nc = run(params["prefix"][i], x, kind, None if cache is None else cache["prefix"][i])
+        x, nc = run(params["prefix"][i], x, kind, None if cache is None else cache["prefix"][i], enc_out)
         new_cache.setdefault("prefix", []).append(nc)
     if cfg.n_groups > 0 and cache is None:
 
-        def group_fn(x, gp):
+        def group_fn(x, gp, enc_out):
             for i, kind in enumerate(cfg.pattern):
-                x, _ = run(gp[f"b{i}"], x, kind, None)
+                x, _ = run(gp[f"b{i}"], x, kind, None, enc_out)
             return constrain_batch(x)
 
         group = _remat(group_fn, cfg.remat) if torch.is_grad_enabled() else group_fn
         for gi in range(cfg.n_groups):
-            x = group(x, _tree_slice(params["groups"], gi))
+            x = group(x, _tree_slice(params["groups"], gi), enc_out)
     elif cfg.n_groups > 0:
         group_caches = []
         for gi in range(cfg.n_groups):
             gp, gc = _tree_slice(params["groups"], gi), _tree_slice(cache["groups"], gi)
             ncs = {}
             for i, kind in enumerate(cfg.pattern):
-                x, ncs[f"b{i}"] = run(gp[f"b{i}"], x, kind, gc[f"b{i}"])
+                x, ncs[f"b{i}"] = run(gp[f"b{i}"], x, kind, gc[f"b{i}"], enc_out)
             group_caches.append(ncs)
             x = constrain_batch(x)
         new_cache["groups"] = nn.tree_map(lambda *xs: torch.stack(xs), *group_caches)
     for i, kind in enumerate(cfg.suffix):
-        x, nc = run(params["suffix"][i], x, kind, None if cache is None else cache["suffix"][i])
+        x, nc = run(params["suffix"][i], x, kind, None if cache is None else cache["suffix"][i], enc_out)
         new_cache.setdefault("suffix", []).append(nc)
     return unembed(params, cfg, x), (new_cache if cache is not None else None)

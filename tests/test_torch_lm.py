@@ -277,8 +277,12 @@ def test_reduced_prefill_step_matches_jax():
     got = steps.make_prefill_step(cfg, device="cpu")(tp, {"tokens": toks})
     assert got.shape == (3, 1, 512)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **MODEL_TOL)
-    with pytest.raises(NotImplementedError, match="frontend"):
-        steps.make_prefill_step(cfg, device="cpu")(tp, {"tokens": toks, "frames": toks})
+    # a model without an encoder reads no frames, in both packages
+    frames = np.random.default_rng(2).standard_normal((3, 6, 64)).astype(np.float32)
+    want_f = jsteps.make_prefill_step(jcfg)(jp, {"tokens": jnp.asarray(toks), "frames": jnp.asarray(frames)})
+    got_f = steps.make_prefill_step(cfg, device="cpu")(tp, {"tokens": toks, "frames": frames})
+    np.testing.assert_allclose(got_f.numpy(), np.asarray(want_f), **MODEL_TOL)
+    assert torch.equal(got_f, got)
 
 
 def test_kernel_and_plain_scan_give_the_same_model():
@@ -359,18 +363,18 @@ def test_configs_registry_matches_jax():
         for arch in jconfigs.ARCHS:
             assert configs.cell_supported(arch, configs.get_shape(s.name)) == jconfigs.cell_supported(arch, s)
     for arch in ("whisper-base", "internvl2-1b"):  # the encoder-decoder and the vision frontend
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            configs.get_config(arch)
-    for arch in set(jconfigs.ARCHS) - {"whisper-base", "internvl2-1b"}:
+        cfg, jcfg = configs.get_config(arch), jconfigs.get_config(arch)
+        assert [f.name for f in dataclasses.fields(cfg)] == [f.name for f in dataclasses.fields(jcfg)]
+        assert dataclasses.astuple(cfg) == dataclasses.astuple(jcfg)
+    for arch in jconfigs.ARCHS:
         assert configs.get_config(arch).name == jconfigs.get_config(arch).name == arch
     with pytest.raises(KeyError):
         configs.get_config("no-such-arch")
-    rg = configs.get_config("recurrentgemma-2b")
-    for pattern in (("enc",), ("dec",)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            transformer.model_defs(dataclasses.replace(rg, pattern=pattern))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transformer.model_defs(dataclasses.replace(rg, frontend="vision"))
+    # the encoder-decoder kinds and the vision frontend in place of RG-LRU groups: JAX's trees
+    rg, jrg = configs.get_config("recurrentgemma-2b"), jconfigs.get_config("recurrentgemma-2b")
+    for change in (dict(pattern=("enc",)), dict(pattern=("dec",)), dict(frontend="vision")):
+        got = transformer.model_defs(dataclasses.replace(rg, **change))
+        assert _def_tree(got) == _def_tree(jtf.model_defs(dataclasses.replace(jrg, **change)))
 
 
 def test_entry_points_run_on_the_card_unless_asked_otherwise():

@@ -1,8 +1,10 @@
-"""The port's decoder-only architectures beside RecurrentGemma against the JAX package.
+"""The port's architectures beside RecurrentGemma against the JAX package.
 
-MLA, MoE and the xLSTM blocks, then the seven reduced configs
+MLA, MoE and the xLSTM blocks, then the nine reduced configs
 (``internlm2-1.8b``, ``qwen3-8b``, ``deepseek-67b``, ``gemma2-2b``,
-``arctic-480b``, ``deepseek-v2-236b``, ``xlstm-125m``) end to end, held
+``arctic-480b``, ``deepseek-v2-236b``, ``xlstm-125m``, ``internvl2-1b`` with
+its patch-embedding prefix, ``whisper-base`` with its encoder frames and its
+decode cache's cross-attention rows filled from them) end to end, held
 against the JAX package on the same numpy inputs and the same weights (JAX
 ``materialize(..., dtype_override=float32)`` carried across with
 ``nn.params_from_numpy``), and the full configs' ``ParamDef`` trees without
@@ -28,10 +30,12 @@ from repro.models import steps as jsteps
 from repro.models import transformer as jtf
 from repro_torch import configs, nn
 from repro_torch.models import blocks, params, steps, transformer
+from test_torch_lm_encdec import _fill_cross
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 MODEL_TOL = dict(rtol=1e-4, atol=1e-4)
-ARCHS = ("internlm2-1.8b", "qwen3-8b", "deepseek-67b", "gemma2-2b", "arctic-480b", "deepseek-v2-236b", "xlstm-125m")
+ARCHS = ("internlm2-1.8b", "qwen3-8b", "deepseek-67b", "gemma2-2b", "arctic-480b", "deepseek-v2-236b", "xlstm-125m",
+         "internvl2-1b", "whisper-base")
 
 
 def _np(tree):
@@ -243,7 +247,7 @@ def test_xlstm_fresh_cache_starts_the_stabilizer_at_zero():
     np.testing.assert_allclose((tcached - tuncached).abs().amax(dim=(0, 2)).numpy(), gap, rtol=0, atol=1e-4)
 
 
-# -- the seven reduced configs end to end ----------------------------------------------
+# -- the nine reduced configs end to end -----------------------------------------------
 
 
 def _reduced(arch):
@@ -257,14 +261,24 @@ def _prompts(n, length, seed=0):
     return np.random.default_rng(seed).integers(0, 512, (n, length)).astype(np.int32)
 
 
+def _frontend(cfg, n, seed=5):
+    """The config's frontend input as numpy: 8 patch embeddings (vision) or
+    16 encoder frames (audio); none for a text-only model."""
+    if cfg.frontend == "vision":
+        return {"vis_embeds": _x((n, cfg.vis_len, cfg.d_model), seed)}
+    if cfg.frontend == "audio":
+        return {"frames": _x((n, 16, cfg.d_model), seed)}
+    return {}
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_reduced_forward_matches_jax(arch):
     jcfg, cfg, jp, tp = _reduced(arch)
-    toks = _prompts(2, 12)
-    jl, _ = jtf.forward(jp, jcfg, jnp.asarray(toks))
+    toks, extra = _prompts(2, 12), _frontend(cfg, 2)
+    jl, _ = jtf.forward(jp, jcfg, jnp.asarray(toks), **{k: jnp.asarray(v) for k, v in extra.items()})
     with torch.no_grad():
-        tl, cache = transformer.forward(tp, cfg, _torch(toks))
-    assert cache is None and tl.dtype == torch.float32
+        tl, cache = transformer.forward(tp, cfg, _torch(toks), **{k: _torch(v) for k, v in extra.items()})
+    assert cache is None and tl.dtype == torch.float32 and tl.shape[1] == 12 + cfg.vis_len
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **MODEL_TOL)
 
 
@@ -273,11 +287,16 @@ def test_reduced_serve_prefill_then_decode_matches_jax(arch):
     """``serve_step``: 12 prompt tokens prefilled into a 24-position cache
     (past gemma2's reduced window of 8), then 6 decode steps teacher-forced
     from JAX's greedy tokens; logits, next tokens and every cache leaf after
-    each step."""
+    each step.  The serving step takes tokens only (a text prompt for
+    internvl2); whisper's cache first gets the cross-attention rows of 16
+    encoded frames."""
     jcfg, cfg, jp, tp = _reduced(arch)
     jcache = jparams.materialize(jax.random.PRNGKey(1), jtf.model_cache_defs(jcfg, 2, 24), dtype_override=jnp.float32)
     tcache = params.materialize(None, transformer.model_cache_defs(cfg, 2, 24), torch.float32, "cpu")
     _close(tcache, jcache, TOL)
+    if cfg.enc_pattern:
+        _fill_cross(jcfg, cfg, jp, tp, jcache, tcache, _frontend(cfg, 2)["frames"])
+        _close(tcache, jcache, TOL)
     jstep, tstep = jax.jit(jsteps.make_serve_step(jcfg)), steps.make_serve_step(cfg, device="cpu")
     toks, pos = _prompts(2, 12), 0
     for step in range(7):
@@ -294,9 +313,9 @@ def test_reduced_serve_prefill_then_decode_matches_jax(arch):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_reduced_prefill_step_matches_jax(arch):
     jcfg, cfg, jp, tp = _reduced(arch)
-    toks = _prompts(3, 10, seed=1)
-    want = jsteps.make_prefill_step(jcfg)(jp, {"tokens": jnp.asarray(toks)})
-    got = steps.make_prefill_step(cfg, device="cpu")(tp, {"tokens": toks})
+    batch = {"tokens": _prompts(3, 10, seed=1), **_frontend(cfg, 3)}
+    want = jsteps.make_prefill_step(jcfg)(jp, jax.tree_util.tree_map(jnp.asarray, batch))
+    got = steps.make_prefill_step(cfg, device="cpu")(tp, batch)
     assert got.shape == (3, 1, 512)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **MODEL_TOL)
 

@@ -153,8 +153,13 @@ def test_lm_loss_matches_jax():
     want = jax.jit(lambda p, t: jsteps.lm_loss(p, jcfg, {"tokens": t}))(jp, jnp.asarray(toks))
     got = steps.lm_loss(tp, cfg, {"tokens": toks})
     np.testing.assert_allclose(float(got), float(want), **MODEL_TOL)
-    with pytest.raises(NotImplementedError, match="frontend"):
-        steps.lm_loss(tp, cfg, {"tokens": toks, "vis_embeds": toks})
+    # a vision prefix before the tokens: its logits are dropped before the loss, in both packages
+    vis = np.random.default_rng(1).standard_normal((2, 4, 64)).astype(np.float32)
+    want_v = jax.jit(lambda p, t, v: jsteps.lm_loss(p, jcfg, {"tokens": t, "vis_embeds": v}))(
+        jp, jnp.asarray(toks), jnp.asarray(vis))
+    got_v = steps.lm_loss(tp, cfg, {"tokens": toks, "vis_embeds": vis})
+    np.testing.assert_allclose(float(got_v), float(want_v), **MODEL_TOL)
+    assert abs(float(got_v) - float(got)) > 1e-4  # the prefix is read
 
 
 def test_train_steps_match_jax():
