@@ -100,6 +100,20 @@ Each phase prints one JSON line:
            + 448 tokens, xlstm 2 x 512): a warm step, 3 steps split into forward,
            backward and optimizer, every loss and grad norm finite, tokens/s, peak
            memory; none of the six kernels launches
+  dryrun   the port's dry run (launch/dryrun.py), in child processes started
+           side by side once every timed phase is over (they run on the host
+           CPU, every tensor on the meta device, so no timing shares the host
+           with them; the distributed phase holds an NCCL default group, the
+           dry run a fake one): the three
+           hillclimb cells and their five variants (launch/hillclimb.py) on the
+           16 x 16 mesh, one line each with the compute, memory and collective
+           terms on H100 data-sheet constants, the bottleneck and the per-GPU
+           memory, each of which must end ok; then each step that lm, lm_archs
+           and lm_archs_train timed, counted on one GPU at its cut and shape,
+           one line each beside its measured ms (a compute term above 1.05 x
+           the measured time fails) and its predicted peak beside
+           max_memory_allocated; the RecurrentGemma prefill's count must charge
+           its 18 linear_scan launches by the kernel's formula
 then the kernel summary line, the card's name and power limit, and the status
 line.  Any failure exits nonzero; so does a machine without a CUDA device, or
 a directory that holds this script and nothing else of the repository.
@@ -1604,7 +1618,215 @@ def lm_archs_train_phase(counted, timed, card, kernels):
     return out
 
 
+#: The dryrun phase's cells: the hillclimb's three on the single-pod mesh
+#: (launch/hillclimb.py), each run as it is before the variants that its
+#: function of ``hillclimb`` then runs: name -> (arch, shape, function).
+DRYRUN_BASELINES = {"A0_baseline": ("qwen3-8b", "train_4k", "cell_a"),
+                    "B0_baseline": ("deepseek-v2-236b", "decode_32k", "cell_b"),
+                    "C0_baseline": ("recurrentgemma-2b", "prefill_32k", "cell_c")}
+# A step's compute term is the least time its FLOPs take at the card's bf16
+# peak; a measured time below it by more than timing noise is impossible.
+COMPUTE_TERM_MAX_SHARE = 1.05
+
+
+def measured_steps():
+    """The LM steps that the lm, lm_archs and lm_archs_train phases time, at
+    their cuts and shapes: one dict each (phase, arch, layer groups, kind,
+    batch, tokens, cache length, patch embeddings, frames)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import ENC_LEN
+
+    def frontend(arch, length):
+        cfg = get_config(arch)
+        if cfg.frontend == "vision":
+            return {"tokens": length - length // 2, "vis": length // 2, "frames": 0}
+        return {"tokens": length, "vis": 0, "frames": ENC_LEN if cfg.frontend == "audio" else 0}
+
+    out = [{"phase": "lm", "arch": "recurrentgemma-2b", "groups": None, "kind": "prefill", "batch": SIZES["lm_batch"],
+            "tokens": SIZES["lm_prompt"], "vis": 0, "frames": 0, "max_seq": SIZES["lm_prompt"] + SIZES["lm_decode"]}]
+    for arch, cut in LM_ARCHS.items():
+        cfg = get_config(arch)
+        P = SIZES["whisper_prompt"] if cfg.enc_pattern else max(SIZES["archs_prompt"], cfg.window or 0)
+        max_seq = SIZES["whisper_context"] if cfg.enc_pattern else P + SIZES["archs_decode"]
+        out.append({"phase": "lm_archs", "arch": arch, "groups": cut, "kind": "prefill", "batch": SIZES["archs_batch"],
+                    **frontend(arch, P), "max_seq": max_seq})
+    for arch, (groups, seq) in LM_ARCHS_TRAIN.items():
+        if not isinstance(groups, str):
+            out.append({"phase": "lm_archs_train", "arch": arch, "groups": groups, "kind": "train",
+                        "batch": SIZES["archs_train_batch"], **frontend(arch, seq or SIZES["archs_train_seq"]),
+                        "max_seq": None})
+    return out
+
+
+def dryrun_counts(request_path, out_path):
+    """A share of the dryrun phase's work, in a process of its own (the
+    distributed phase holds an NCCL default group; the dry run makes a fake
+    one): the request's hillclimb baseline and its variants on the
+    single-pod 16 x 16 mesh, if it names one, then each of its measured steps
+    counted on one GPU at its cut and shape: plain meta tensors and no mesh,
+    the card's own code path.  Nothing runs on the card.  Writes
+    {"cells": {...}, "steps": [...]} to ``out_path``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch import dryrun, hillclimb
+    from repro_torch.launch.roofline import terms_from_counter
+    from repro_torch.models.params import abstract
+    from repro_torch.models.steps import TrainStepConfig, make_serve_step, make_train_step
+    from repro_torch.models.transformer import model_cache_defs, model_defs
+
+    with open(request_path) as f:
+        request = json.load(f)
+    cells = {}
+    if request["baseline"]:
+        arch, shape, climb = DRYRUN_BASELINES[request["baseline"]]
+        cells[request["baseline"]] = dryrun.run_cell(arch, shape, False, save=False)
+        cells.update(getattr(hillclimb, climb)())
+
+    tcfg = TrainStepConfig()
+
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    steps = []
+    for spec in request["steps"]:
+        t0 = time.perf_counter()
+        cfg = get_config(spec["arch"])
+        cfg = reduced(cfg) if request["reduced"] else cfg
+        if spec["groups"] is not None:
+            cfg = dataclasses.replace(cfg, n_groups=min(spec["groups"], cfg.n_groups))
+        params = abstract(model_defs(cfg))
+        B = spec["batch"]
+
+        def build(n):
+            """(fn, args) of the step with ``n`` tokens."""
+            batch = {"tokens": meta((B, n), torch.int32)}
+            if spec["vis"]:
+                batch["vis_embeds"] = meta((B, spec["vis"], cfg.d_model), torch.bfloat16)
+            if spec["frames"]:
+                batch["frames"] = meta((B, spec["frames"], cfg.d_model), torch.bfloat16)
+            if spec["kind"] == "train":
+                return make_train_step(cfg, tcfg, device="meta")[0], (dryrun.train_state(params, tcfg), batch)
+            cache = abstract(model_cache_defs(cfg, B, spec["max_seq"]))
+            step = make_serve_step(cfg, device="meta")
+            toks = batch.pop("tokens")
+            return (lambda w, c, t, extra: lm_prefill(step, w, cfg, c, t, extra)), (params, cache, toks, batch)
+
+        if dryrun.time_loop(cfg):
+            c, _, meta_rec = dryrun.extrapolate_in_time(lambda n: dryrun.count_call(*build(n), None), spec["tokens"])
+            args_b = dryrun.local_bytes(build(spec["tokens"])[1])
+        else:
+            c, args_b, _ = dryrun.count_call(*build(spec["tokens"]), None)
+            meta_rec = None
+        terms = terms_from_counter(c, 0.0)
+        steps.append({**spec, "layers": cfg.n_layers(), "flops": c.flops, "bytes": c.bytes, "t_compute_s": terms.t_compute,
+                      "t_memory_s": terms.t_memory, "argument_bytes": args_b, "temp_bytes": c.temp_peak,
+                      "predicted_peak_bytes": args_b + c.temp_peak, "kernels": c.kernels,
+                      "extrapolated": meta_rec, "count_s": time.perf_counter() - t0})
+    with open(out_path, "w") as f:
+        json.dump({"cells": cells, "steps": steps}, f, default=str)
+    return 0
+
+
+def start_dryrun(where):
+    """Start ``dryrun_counts`` in five child processes side by side, on the
+    host CPU: one for each hillclimb baseline with its variants, and two for
+    the measured steps (those with a time loop apart: they take longest to
+    count).  Each one's request, counts and log are ``where/<i>.*``, its
+    artifacts under ``where/artifacts``.  The processes, in that order."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import time_loop
+
+    steps = measured_steps()
+    looped = [time_loop(get_config(s["arch"])) for s in steps]
+    requests = [{"baseline": name, "steps": []} for name in DRYRUN_BASELINES]
+    requests += [{"baseline": None, "steps": [s for s, t in zip(steps, looped) if t == want]} for want in (False, True)]
+    procs = []
+    for i, req in enumerate(requests):
+        with open(where / f"{i}.request.json", "w") as f:
+            json.dump({**req, "reduced": SIZES["lm_reduced"]}, f)
+        with open(where / f"{i}.log", "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--dryrun-counts", str(where / f"{i}.request.json"),
+                 str(where / f"{i}.counts.json")], stdout=log, stderr=subprocess.STDOUT,
+                env=dict(os.environ, REPRO_ARTIFACTS=str(where / "artifacts"))))
+    return procs
+
+
+def dryrun_phase(lm, archs, archs_train, card, n_rec, lm_width):
+    """The dry run's results: one line a hillclimb cell (the three terms on
+    H100 data-sheet constants, the bottleneck, per-GPU memory), each of which
+    must end ``ok``; then each measured LM step beside its count on one GPU
+    (compute and memory terms, their share of the measured ms, the predicted
+    peak against ``max_memory_allocated``).  Fails if the child failed, if a
+    compute term passes ``COMPUTE_TERM_MAX_SHARE`` x the measured time, or if
+    the RecurrentGemma prefill's count does not charge its ``n_rec``
+    ``linear_scan`` launches by the kernel's formula.  The counts are made
+    in child processes (``start_dryrun``), all stopped before it returns."""
+    t0 = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    where = Path(tempfile.mkdtemp(prefix="dryrun_", dir=ROOT / "build"))
+    procs = start_dryrun(where)
+    got = {"cells": {}, "steps": []}
+    try:
+        for i, proc in enumerate(procs):
+            rc = proc.wait(timeout=600)
+            if rc != 0:
+                print((where / f"{i}.log").read_text()[-6000:], file=sys.stderr)
+                raise AssertionError(f"dryrun: child process {i} exited {rc}")
+            with open(where / f"{i}.counts.json") as f:
+                part = json.load(f)
+            got["cells"].update(part["cells"])
+            got["steps"] += part["steps"]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+        shutil.rmtree(where, ignore_errors=True)
+    bad = []
+    for name, cell in got["cells"].items():
+        row = {"phase": "dryrun", "cell": name, "card": card, "arch": cell["arch"], "shape": cell["shape"],
+               "mesh": cell["mesh"], "status": cell["status"], "constants": "H100 SXM data sheet (counted, not measured)"}
+        if cell["status"] == "ok":
+            r = cell["roofline"]
+            row.update({k: r[k] for k in ("t_compute_s", "t_memory_s", "t_collective_s", "bottleneck",
+                                          "roofline_fraction", "collectives")},
+                       chips=cell["chips"], memory=cell["memory"], kernels=cell["kernels"], count_s=cell["count_s"])
+        else:
+            row["error"] = cell.get("error")
+            bad.append(name)
+        emit(row)
+    measured = {("lm", "recurrentgemma-2b"): (lm["prefill_ms"], lm["max_memory_allocated_bytes"])}
+    measured.update({("lm_archs", r["arch"]): (r["prefill_ms"], r["max_memory_allocated_bytes"]) for r in archs})
+    measured.update({("lm_archs_train", r["arch"]): (r["step"]["step_ms"], r["max_memory_allocated_bytes"])
+                     for r in archs_train if "step" in r})
+    for step in got["steps"]:
+        ms, peak = measured[(step["phase"], step["arch"])]
+        tc, tm = step["t_compute_s"] * 1e3, step["t_memory_s"] * 1e3
+        emit({"phase": "dryrun_check", "card": card, "measured_in": step["phase"], **{k: step[k] for k in (
+                  "arch", "kind", "layers", "batch", "tokens", "vis", "frames", "flops", "bytes", "kernels",
+                  "argument_bytes", "temp_bytes", "predicted_peak_bytes", "extrapolated", "count_s")},
+              "measured_ms": ms, "t_compute_ms": tc, "t_memory_ms": tm, "compute_share": tc / ms,
+              "memory_share": tm / ms, "max_memory_allocated_bytes": peak,
+              "predicted_peak_over_measured": step["predicted_peak_bytes"] / peak})
+        if tc > COMPUTE_TERM_MAX_SHARE * ms:
+            bad.append(f"{step['phase']}:{step['arch']} compute term {tc} ms > {COMPUTE_TERM_MAX_SHARE} x {ms} ms")
+        if step["phase"] == "lm":
+            scan = step["kernels"].get("linear_scan", {})
+            per = 2.0 * step["batch"] * step["tokens"] * lm_width
+            if scan.get("launches") != n_rec or scan.get("flops") != n_rec * per:
+                bad.append(f"lm: the count charged linear_scan {scan}; want {n_rec} launches of {per} FLOPs")
+    emit({"phase": "dryrun", "card": card, "cells": len(got["cells"]), "steps": len(got["steps"]),
+          "children": len(procs), "seconds": time.perf_counter() - t0})
+    if bad:
+        raise AssertionError(f"dryrun: {bad}")
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--dryrun-counts"]:  # the dryrun phase's child process
+        return dryrun_counts(sys.argv[2], sys.argv[3])
     # the lm_train phase's step frees and makes tensors of many sizes (per-leaf
     # optimizer temporaries as large as the embedding, (B, S, V) float32
     # gradients of the logits); without expandable segments the caching
@@ -2517,14 +2739,17 @@ def main() -> int:
     # -- 11. lm_archs: the other decoder-only architectures through make_serve_step --
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    lm_archs_phase(counted, timed, device_split, aten_ops, card, costream + ("linear_scan",))
+    archs = lm_archs_phase(counted, timed, device_split, aten_ops, card, costream + ("linear_scan",))
 
     # -- 12. lm_archs_train: the nine architectures through make_train_step ----------
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    lm_archs_train_phase(counted, timed, card, costream + ("linear_scan",))
+    archs_train = lm_archs_train_phase(counted, timed, card, costream + ("linear_scan",))
 
-    # -- 13. kernel summary (the representative case: the most work on the path) ------
+    # -- 13. dryrun: the hillclimb cells on the 16 x 16 mesh, and each measured LM step's count on one GPU --
+    dryrun_phase(lm, archs, archs_train, card, n_rec, width)
+
+    # -- 14. kernel summary (the representative case: the most work on the path) ------
     sources = {
         "banked_mlp": ("src/repro_torch/csrc/banked_mlp.cu", "src/repro/kernels/banked_mlp/kernel.py:53"),
         "mp_update": ("src/repro_torch/csrc/mp_update.cu", "src/repro/kernels/mp_update/kernel.py:64"),
@@ -2551,7 +2776,7 @@ def main() -> int:
                         "backward_launches_per_train_step": backward[name]["launches_per_step"] if name in backward else 0})
     emit({"kernels": summary})
 
-    # -- 14. the card, 15. status ---------------------------------------------------
+    # -- 15. the card, 16. status ---------------------------------------------------
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

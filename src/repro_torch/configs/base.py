@@ -7,9 +7,9 @@ Shapes (identical for every LM arch):
   decode_32k   seq 32,768  global_batch 128   serve_step (1 new token)
   long_500k    seq 524,288 global_batch 1     serve_step; SSM/hybrid only
 
-``get_config`` answers for every architecture of ``ARCHS``.  The JAX
-package's ``input_specs`` serves its dry-run only and is not ported yet
-(ROADMAP queue 1, item 10d).
+``get_config`` answers for every architecture of ``ARCHS``; ``input_specs``
+gives the dry run (``launch/dryrun.py``) each cell's inputs as ``meta``
+tensors.
 """
 
 from __future__ import annotations
@@ -19,8 +19,11 @@ import importlib
 from dataclasses import dataclass
 from typing import Any, Dict, Tuple
 
+import torch
+
 from repro_torch.models import blocks as B
-from repro_torch.models.transformer import ModelConfig
+from repro_torch.models.params import abstract
+from repro_torch.models.transformer import ModelConfig, model_cache_defs
 
 ARCHS = (
     "internlm2-1.8b",
@@ -118,3 +121,39 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
     if cfg.xlstm is not None:
         kw["xlstm"] = B.XLSTMConfig(d_model=64, n_heads=4, expansion=2)
     return dataclasses.replace(cfg, **kw)
+
+
+# ---------------------------------------------------------------------------
+# input specs (meta tensors; no allocation)
+# ---------------------------------------------------------------------------
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> Dict[str, Any]:
+    """Inputs of the step that this cell runs, as empty ``meta`` tensors.
+
+    train/prefill: {"tokens": (B, S) int32} (+ ``vis_embeds`` (B, V, d) with
+    V = min(vis_len, S / 2) and S - V tokens, or ``frames`` (B, S, d), bf16).
+    decode: {"tokens": (B, 1), "cache": <arch cache at S>, "cache_len": ()}.
+    """
+    Bsz, S = shape.global_batch, shape.seq_len
+
+    def meta(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    out: Dict[str, Any] = {}
+    if shape.kind in ("train", "prefill"):
+        if cfg.frontend == "vision":
+            v = min(cfg.vis_len, S // 2)
+            out["tokens"] = meta((Bsz, S - v), torch.int32)
+            out["vis_embeds"] = meta((Bsz, v, cfg.d_model), torch.bfloat16)
+        elif cfg.frontend == "audio":
+            out["tokens"] = meta((Bsz, S), torch.int32)
+            out["frames"] = meta((Bsz, S, cfg.d_model), torch.bfloat16)
+        else:
+            out["tokens"] = meta((Bsz, S), torch.int32)
+        return out
+    # decode: one new token against a cache of S
+    out["tokens"] = meta((Bsz, 1), torch.int32)
+    out["cache"] = abstract(model_cache_defs(cfg, Bsz, S))
+    out["cache_len"] = meta((), torch.int32)
+    return out

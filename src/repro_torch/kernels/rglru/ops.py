@@ -7,6 +7,9 @@ strides, so a non-contiguous input (``h0`` as a slice of a stacked cache, a
 step slice of a wider tensor) needs no copy; the output is a new contiguous
 tensor.
 
+On the ``meta`` device (the dry run) it computes nothing and charges the
+counting dispatch mode the kernel's own count (``_meta_launch``).
+
 On a GPU the launch runs inside an ``autograd.Function``.  Its backward is
 not the plain version's VJP (which the JAX package's ``custom_vjp`` uses, and
 the COSTREAM kernels' Functions): the VJP of ``h_t = a_t h_{t-1} + b_t`` is
@@ -43,9 +46,41 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> torch.Ten
         raise ValueError(f"linear_scan wants h0 {(B, D)}; got {tuple(h0.shape)}")
     if a.device.type == "cpu":
         return linear_scan_ref(a, b, h0)
+    if a.device.type == "meta":
+        return _MetaScan.apply(a, b, h0)
     if a.device.type != "cuda":
         raise ValueError(f"linear_scan runs on the CPU or a CUDA device, not {a.device}")
     return _LinearScan.apply(a, b, h0)
+
+
+def _meta_launch(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> torch.Tensor:
+    """The kernel's launch on the ``meta`` device, shape propagation for the
+    dry run (``launch/dryrun.py``): an empty result of ``a``'s shape, and
+    nothing computed.  A DTensor input is first laid out as the kernel needs
+    it, each rank holding whole sequences: a mesh dimension that shards T is
+    replicated (DTensor gathers it), ``b`` takes ``a``'s placements and
+    ``h0`` the matching ones on (B, D).  Every dispatch mode on the stack
+    that counts kernels (``charge_kernel``, the roofline counter) is charged
+    the kernel's own count on the local shapes: 2 B T D FLOPs, and
+    4 (3 B T D + B D) bytes (``a``, ``b`` and ``h0`` read, ``h`` written)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+
+    dt = next((t for t in (a, b, h0) if isinstance(t, DTensor)), None)
+    if dt is not None:
+        mesh = dt.device_mesh
+        a, b, h0 = (t if isinstance(t, DTensor) else DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim)
+                    for t in (a, b, h0))
+        pa = [Replicate() if p.is_shard(1) or not p.is_shard() else p for p in a.placements]
+        ph = [Shard(0) if p.is_shard(0) else Shard(1) if p.is_shard(2) else Replicate() for p in pa]
+        a, b, h0 = a.redistribute(mesh, pa), b.redistribute(mesh, pa), h0.redistribute(mesh, ph)
+        B, T, D = a.to_local().shape
+    else:
+        B, T, D = a.shape
+    for mode in _get_current_dispatch_mode_stack():
+        if hasattr(mode, "charge_kernel"):
+            mode.charge_kernel("linear_scan", 2.0 * B * T * D, 4.0 * (3 * B * T * D + B * D))
+    return torch.empty_like(a)
 
 
 def _launch(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> torch.Tensor:
@@ -89,6 +124,24 @@ def linear_scan_bwd(
     lam = torch.flip(scan(a_rev, torch.flip(g, [1]), torch.zeros_like(h0)), [1])
     h_prev = torch.cat([h0[:, None], h[:, :-1]], dim=1)
     return lam * h_prev, lam, a[:, 0] * lam[:, 0]
+
+
+class _MetaScan(torch.autograd.Function):
+    """``_LinearScan`` on the ``meta`` device: the same backward, with
+    ``_meta_launch`` for the kernel."""
+
+    @staticmethod
+    def forward(ctx, a, b, h0):
+        h = _meta_launch(a, b, h0)
+        ctx.save_for_backward(a, h0, h)
+        return h
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        a, h0, h = ctx.saved_tensors
+        da, db, dh0 = linear_scan_bwd(a, h0, h, g.to(torch.float32), _meta_launch)
+        return tuple(d if n else None for d, n in zip((da, db, dh0), ctx.needs_input_grad))
 
 
 class _LinearScan(torch.autograd.Function):

@@ -32,6 +32,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.kernels.rglru import ops as scan_ops
 from repro_torch.kernels.rglru.ref import linear_scan_ref
 from repro_torch.models.params import pdef
+from repro_torch.models.sharding_ctx import batch_only, constrain_heads, einsum, like, merge, unflatten
 
 Params = Dict[str, Any]
 
@@ -134,15 +135,15 @@ def _attend_naive(
 ) -> torch.Tensor:
     B, Sq, H, D = q.shape
     KV = k.shape[2]
-    qh = q.reshape(B, Sq, KV, H // KV, D)
-    logits = torch.einsum("bqkrd,bskd->bkrqs", qh.to(torch.float32), k.to(torch.float32))
+    qh = unflatten(q, 2, (KV, H // KV))
+    logits = einsum("bqkrd,bskd->bkrqs", qh.to(torch.float32), k.to(torch.float32))
     logits = softcap(logits / math.sqrt(D), cap)
     qp = q_pos if q_pos.ndim == 2 else q_pos[None, :]
     mask = _mask(qp, k_pos, causal, window, k_len)
     logits = torch.where(mask[:, None, None, :, :], logits, -1e30)
     probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bkrqs,bskd->bqkrd", probs, v.to(torch.float32))
-    return out.reshape(B, Sq, H, D)
+    out = einsum("bkrqs,bskd->bqkrd", probs, v.to(torch.float32))
+    return merge(out, 2)
 
 
 def _attend_blocked(
@@ -174,7 +175,7 @@ def _attend_blocked(
         k = F.pad(k, (0, 0, 0, 0, 0, pad))
         v = F.pad(v, (0, 0, 0, 0, 0, pad))
         k_pos = F.pad(k_pos, (0, pad), value=2**30)
-    qh = (q.to(torch.float32) / math.sqrt(D)).reshape(B, Sq, KV, rep, D)
+    qh = unflatten(q.to(torch.float32) / math.sqrt(D), 2, (KV, rep))
     qp = q_pos if q_pos.ndim == 2 else q_pos[None, :]
 
     m = torch.full((B, KV, rep, Sq), -1e30, dtype=torch.float32, device=q.device)
@@ -183,20 +184,21 @@ def _attend_blocked(
     for i in range(nblk):
         blk = slice(i * block, (i + 1) * block)
         kc, vc, pc = k[:, blk], v[:, blk], k_pos[blk]
-        logits = softcap(torch.einsum("bqkrd,bskd->bkrqs", qh, kc.to(torch.float32)), cap)
+        logits = softcap(einsum("bqkrd,bskd->bkrqs", qh, kc.to(torch.float32)), cap)
         mask = _mask(qp, pc, causal, window, k_len)
         logits = torch.where(mask[:, None, None, :, :], logits, -1e30)
         m_new = torch.maximum(m, torch.amax(logits, dim=-1))
         p = torch.exp(logits - m_new[..., None])
         scale = torch.exp(m - m_new)
         l = l * scale + torch.sum(p, dim=-1)
-        acc = acc * scale[..., None] + torch.einsum("bkrqs,bskd->bkrqd", p, vc.to(torch.float32))
+        acc = acc * scale[..., None] + einsum("bkrqs,bskd->bkrqd", p, vc.to(torch.float32))
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]  # (B, KV, rep, Sq, D)
-    return torch.movedim(out, 3, 1).reshape(B, Sq, H, D)
+    return merge(torch.movedim(out, 3, 1), 2)
 
 
 def _attend(q, k, v, **kw):
+    q, k, v = (constrain_heads(t, k.shape[2]) for t in (q, k, v))
     if k.shape[1] > ATTN_BLOCK:
         if torch.is_grad_enabled():
             # as the JAX package's jax.checkpoint: the backward recomputes each
@@ -239,14 +241,14 @@ def apply_attn(
     cache unchanged.  It applies no RoPE and no causal mask."""
     B, S, _ = x.shape
     h, kv, hd = c.n_heads, c.n_kv_heads, c.head_dim
-    q = (x @ p["wq"]).reshape(B, S, h, hd)
+    q = unflatten(x @ p["wq"], -1, (h, hd))
     k = v = None
     if not (c.cross and cache is not None):  # a cached cross-attention reads the encoder's kv
         src = kv_source if c.cross else x
         if src is None:
             raise ValueError("apply_attn: an uncached cross-attention needs kv_source")
-        k = (src @ p["wk"]).reshape(B, src.shape[1], kv, hd)
-        v = (src @ p["wv"]).reshape(B, src.shape[1], kv, hd)
+        k = unflatten(src @ p["wk"], -1, (kv, hd))
+        v = unflatten(src @ p["wv"], -1, (kv, hd))
     if c.qk_norm:
         q = apply_rmsnorm(p["q_norm"], q)
         if k is not None:
@@ -273,7 +275,7 @@ def apply_attn(
         else:
             k_pos = positions if positions.ndim == 1 else positions[0]
         out = _attend(q, k, v, k_pos=k_pos, causal=c.causal and not c.cross, window=c.window, **kw)
-    y = out.reshape(B, S, h * hd).to(x.dtype) @ p["wo"]
+    y = merge(out, 2).to(x.dtype) @ p["wo"]
     return y, new_cache
 
 
@@ -337,7 +339,7 @@ def apply_mla(
     width for ``_attend`` and the output sliced back to ``d_v``."""
     B, S, _ = x.shape
     h, dq = c.n_heads, c.d_nope + c.d_rope
-    q = (apply_rmsnorm(p["q_norm"], x @ p["wq_a"]) @ p["wq_b"]).reshape(B, S, h, dq)
+    q = unflatten(apply_rmsnorm(p["q_norm"], x @ p["wq_a"]) @ p["wq_b"], -1, (h, dq))
     q = torch.cat([q[..., : c.d_nope], rope(q[..., c.d_nope :], positions, c.rope_theta)], dim=-1)
 
     ckv_full = x @ p["wkv_a"]  # (B, S, kv_lora + d_rope)
@@ -352,11 +354,15 @@ def apply_mla(
         k_len = cache_len + S
 
     Sk = packed.shape[1]
-    ckv_all, k_rope_all = packed[..., : c.kv_lora], packed[..., c.kv_lora :]
-    k_nope = (ckv_all @ p["wk_b"]).reshape(B, Sk, h, c.d_nope)
-    v = (ckv_all @ p["wv_b"]).reshape(B, Sk, h, c.d_v)
+    # every position's latent, whole on each rank (a cache sharded over its
+    # sequence is gathered: the expansion below flattens batch and sequence)
+    whole = batch_only(packed)
+    ckv_all, k_rope_all = whole[..., : c.kv_lora], whole[..., c.kv_lora :]
+    k_nope = unflatten(ckv_all @ p["wk_b"], -1, (h, c.d_nope))
+    v = unflatten(ckv_all @ p["wv_b"], -1, (h, c.d_v))
     k = torch.cat([k_nope, k_rope_all[:, :, None, :].expand(B, Sk, h, c.d_rope)], dim=-1)
-    out = _attend(q, k, F.pad(v, (0, dq - c.d_v)), q_pos=positions,
+    v = torch.cat([v, v.new_zeros((*v.shape[:-1], dq - c.d_v))], dim=-1)  # zero-padded to the q / k width
+    out = _attend(q, k, v, q_pos=positions,
                   k_pos=torch.arange(Sk, dtype=torch.int32, device=x.device),
                   causal=True, window=None, cap=None, k_len=k_len)[..., : c.d_v]
     y = out.reshape(B, S, h * c.d_v).to(x.dtype) @ p["wo"]
@@ -461,7 +467,7 @@ def apply_moe(p: Params, x: torch.Tensor, c: MoEConfig, ffn_kind: str = "swiglu"
     slot = torch.where(keep, top_e * cap + pos, E * cap).reshape(B, S * k)
     pair_token = torch.arange(S, device=x.device).repeat_interleave(k).expand(B, -1)
     # the token each buffer row holds; S (a zero row) where no pair fills it
-    row_token = torch.full((B, E * cap + 1), S, dtype=torch.int64, device=x.device).scatter_(1, slot, pair_token)
+    row_token = torch.full((B, E * cap + 1), S, dtype=torch.int64, device=x.device).scatter(1, slot, pair_token)
     xz = torch.cat([x, x.new_zeros(B, 1, d)], dim=1)
     xe = torch.gather(xz, 1, row_token[:, : E * cap, None].expand(-1, -1, d))  # (B, E cap, d)
     xe = xe.reshape(B, E, cap, d).transpose(0, 1).reshape(E, B * cap, d)
@@ -521,7 +527,7 @@ def _gate_matmul(u: torch.Tensor, w: torch.Tensor, c: RGLRUConfig) -> torch.Tens
         return u @ w
     nb = c.n_gate_blocks
     B, S, r = u.shape
-    return torch.einsum("bsnr,nre->bsne", u.reshape(B, S, nb, r // nb), w).reshape(B, S, r)
+    return torch.einsum("bsnr,nre->bsne", unflatten(u, -1, (nb, r // nb)), w).reshape(B, S, r)
 
 
 def _causal_conv1d(x: torch.Tensor, k: torch.Tensor, b: torch.Tensor, state: Optional[torch.Tensor] = None):
@@ -548,8 +554,9 @@ def apply_rglru(
     u = x @ p["w_x"]
     u, conv_state = _causal_conv1d(u, p["conv_k"], p["conv_b"], cache["conv"] if cache is not None else None)
 
-    r_gate = torch.sigmoid(_gate_matmul(u, p["w_rg"], c) + p["b_rg"]).to(torch.float32)
-    i_gate = torch.sigmoid(_gate_matmul(u, p["w_ig"], c) + p["b_ig"]).to(torch.float32)
+    # each gate laid out as u (on a mesh: its partial sums over the channels reduced)
+    r_gate = torch.sigmoid(like(_gate_matmul(u, p["w_rg"], c), u) + p["b_rg"]).to(torch.float32)
+    i_gate = torch.sigmoid(like(_gate_matmul(u, p["w_ig"], c), u) + p["b_ig"]).to(torch.float32)
     log_a = -c.c_const * F.softplus(p["lam"]) * r_gate  # (B, S, r) in fp32
     a = torch.exp(log_a)
     gated_in = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) * (i_gate * u.to(torch.float32))
@@ -614,10 +621,11 @@ def apply_mlstm(
     dh = di // H
     up = x @ p["w_up"]
     u, z = up[..., :di], up[..., di:]
-    q = (u @ p["wq"]).reshape(B, S, H, dh)
-    k = (u @ p["wk"]).reshape(B, S, H, dh) / math.sqrt(dh)
-    v = (u @ p["wv"]).reshape(B, S, H, dh)
-    gates = (u @ p["w_if"] + p["b_if"]).to(torch.float32)  # (B, S, 2H)
+    # the time loop's inputs whole in time on each rank (``batch_only``: a mesh may shard the sequence)
+    q = batch_only(unflatten(u @ p["wq"], -1, (H, dh)))
+    k = batch_only(unflatten(u @ p["wk"], -1, (H, dh))) / math.sqrt(dh)
+    v = batch_only(unflatten(u @ p["wv"], -1, (H, dh)))
+    gates = batch_only((u @ p["w_if"] + p["b_if"]).to(torch.float32))  # (B, S, 2H)
     log_i = gates[..., :H]  # exponential input gate (log space)
     log_f = F.logsigmoid(gates[..., H:])  # forget gate
 
@@ -644,7 +652,7 @@ def apply_mlstm(
         m = m_new
     num = torch.stack(nums, dim=1)[..., 0]  # (B, S, H, dh)
     den = torch.clamp(torch.abs(torch.sum(torch.stack(ns, dim=1)[:, :, :, 0, :] * q32, dim=-1)), min=1.0)
-    h = (num / den[..., None]).to(x.dtype).reshape(B, S, di)
+    h = merge((num / den[..., None]).to(x.dtype), 2)  # (B, S, di)
     n, m = n[:, :, 0, :], m[..., 0, 0]
     h = apply_rmsnorm(p["norm"], h) * F.silu(z)
     y = h @ p["w_down"]
@@ -680,7 +688,7 @@ def apply_slstm(
     B, S, d = x.shape
     H = c.n_heads
     dh = d // H
-    pre = x @ p["w_gates"] + p["b_gates"]  # (B, S, 4d)
+    pre = batch_only(x @ p["w_gates"] + p["b_gates"])  # (B, S, 4d), whole in time on each rank
     if cache is not None:
         cst, nst, mst, hst = (cache[key].to(torch.float32) for key in ("c", "n", "m", "h"))
     else:
@@ -689,8 +697,8 @@ def apply_slstm(
     hs = []
     for pre_t in pre.unbind(1):
         # per head (B, dh) @ (dh, 4 dh), laid out as the JAX package's einsum "bhd,hde->bhe"
-        rec = torch.bmm(hst.view(B, H, dh).transpose(0, 1).to(x.dtype), p["r_gates"]).transpose(0, 1)
-        gi, gf, gz, go = torch.chunk((pre_t + rec.reshape(B, 4 * d)).to(torch.float32), 4, dim=-1)
+        rec = torch.bmm(unflatten(hst, 1, (H, dh)).transpose(0, 1).to(x.dtype), p["r_gates"]).transpose(0, 1)
+        gi, gf, gz, go = torch.chunk((pre_t + merge(rec, 1)).to(torch.float32), 4, dim=-1)
         lf = F.logsigmoid(gf) + mst
         m_new = torch.maximum(lf, gi)
         ig = torch.exp(gi - m_new)

@@ -73,6 +73,12 @@ def _leaves(tree):
     return [leaf for _, leaf in nn.tree_leaves_with_paths(tree)]
 
 
+def abstract(tree):
+    """An empty ``meta`` tensor of each ``ParamDef``'s shape and dtype: the
+    tree's stand-in for the dry run, which allocates nothing."""
+    return nn.tree_map(lambda d: torch.empty(d.shape, dtype=d.dtype, device="meta"), tree)
+
+
 # The most values ``materialize`` draws in one call.  A larger leaf is drawn
 # in flat chunks of this size, so that its float32 temporaries stay a few GB
 # (arctic-480b's stacked expert weights are 8.9e9 values a leaf at two

@@ -20,8 +20,10 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch import nn
+from repro_torch.models.sharding_ctx import batch_only
 from repro_torch.models.transformer import ModelConfig, forward
 from repro_torch.training import optim
 
@@ -59,10 +61,27 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
 
     The gold logit is a gather where the JAX package sums ``logits *
     one_hot``: the same value (the sum has one nonzero term), without a
-    (B, S, V) one-hot tensor as large as the logits."""
+    (B, S, V) one-hot tensor as large as the logits.  Logits whose vocab
+    dimension a mesh splits (a DTensor, in the dry run) take the JAX
+    package's sum instead, over a comparison mask that is sharded like them:
+    each rank sums its own columns and DTensor all-reduces (B, S) values,
+    where its gather across shards fails."""
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets.to(torch.int64)[..., None])[..., 0]
+    if _vocab_split(logits):
+        vocab = torch.arange(logits.shape[-1], device=logits.device)
+        gold = torch.sum(torch.where(targets[..., None] == vocab, logits, 0.0), dim=-1)
+    else:
+        gold = torch.gather(logits, -1, targets.to(torch.int64)[..., None])[..., 0]
     return torch.mean(logz - gold)
+
+
+def _vocab_split(logits: torch.Tensor) -> bool:
+    """Whether ``logits`` is a DTensor whose last dimension is sharded over a
+    mesh dimension of more than one rank."""
+    if not isinstance(logits, DTensor):
+        return False
+    mesh = logits.device_mesh
+    return any(p.is_shard(logits.ndim - 1) and mesh.size(i) > 1 for i, p in enumerate(logits.placements))
 
 
 def lm_loss(params: Params, cfg: ModelConfig, batch: Dict[str, Any]) -> torch.Tensor:
@@ -164,7 +183,8 @@ def make_serve_step(cfg: ModelConfig, device=None):
         tokens = _on(tokens, device)
         with torch.no_grad():
             logits, new_cache = forward(params, cfg, tokens, cache=cache, cache_len=cache_len)
-        next_tok = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)[:, None]
+        # whole rows for the argmax: DTensor's argmax across vocab shards fails at a batch of 1
+        next_tok = torch.argmax(batch_only(logits[:, -1, :]), dim=-1).to(torch.int32)[:, None]
         return logits, new_cache, next_tok
 
     return serve_step

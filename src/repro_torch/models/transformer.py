@@ -48,7 +48,7 @@ from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selectiv
 from repro_torch import nn
 from repro_torch.models import blocks as B
 from repro_torch.models.params import ParamDef, mesh_shape, pdef
-from repro_torch.models.sharding_ctx import constrain, constrain_batch, get_mesh
+from repro_torch.models.sharding_ctx import batch_only, constrain, constrain_batch, get_mesh
 
 Params = Dict[str, Any]
 
@@ -272,9 +272,20 @@ def apply_block(
 ) -> Tuple[torch.Tensor, Optional[Params]]:
     """One block.  A decoder block (``"dec"``) attends over ``enc_out``
     uncached, and over its cache's ``xk`` / ``xv`` cached, which it carries
-    into the new cache unchanged (``enc_out`` is then not read)."""
+    into the new cache unchanged (``enc_out`` is then not read).
+
+    Each branch's output is pinned to the batch layout before its residual
+    add (``constrain_batch``) and each norm's output to the batch layout with
+    every other dimension whole (``batch_only``), both the identity without
+    a mesh.  On a mesh they are Megatron's reduction after a row-parallel
+    matmul and its identity forward, reducing backward, before a
+    column-parallel one (under sequence parallelism its reduce-scatter and
+    all-gather).  Without them DTensor keeps an output projection's partial
+    sum pending through the residual add and RMSNorm and runs the next
+    matmul on it with its weights gathered, the tensor-parallel work done on
+    every rank; the JAX package's partitioner reduces there unasked."""
     eps = cfg.norm_eps
-    h = B.apply_rmsnorm(p["norm1"], x, eps)
+    h = batch_only(B.apply_rmsnorm(p["norm1"], x, eps))
     if kind in ("attn", "local", "global", "moe", "enc", "dec"):
         sub = None if cache is None else {"k": cache["k"], "v": cache["v"]}
         y, new_cache = B.apply_attn(p["attn"], h, cfg.attn_cfg(kind), positions=positions, cache=sub,
@@ -282,8 +293,8 @@ def apply_block(
         if "post_norm1" in p:
             y = B.apply_rmsnorm(p["post_norm1"], y, eps)
         if kind == "dec":
-            x = x + y
-            hc = B.apply_rmsnorm(p["norm_c"], x, eps)
+            x = x + constrain_batch(y)
+            hc = batch_only(B.apply_rmsnorm(p["norm_c"], x, eps))
             if cache is None:
                 y, _ = B.apply_attn(p["cross"], hc, cfg.cross_cfg(), positions=positions, kv_source=enc_out)
             else:
@@ -296,22 +307,22 @@ def apply_block(
         y, new_cache = B.apply_rglru(p["rec"], h, cfg.rglru_cfg(), cache=cache)
     elif kind == "mlstm":
         y, new_cache = B.apply_mlstm(p["mix"], h, cfg.xlstm, cache=cache)
-        return x + y, new_cache
+        return x + constrain_batch(y), new_cache
     elif kind == "slstm":
         y, new_cache = B.apply_slstm(p["mix"], h, cfg.xlstm, cache=cache)
-        return x + y, new_cache
+        return x + constrain_batch(y), new_cache
     else:
         raise ValueError(f"block kind {kind!r}")
-    x = x + y
+    x = x + constrain_batch(y)
 
-    h2 = B.apply_rmsnorm(p["norm2"], x, eps)
+    h2 = batch_only(B.apply_rmsnorm(p["norm2"], x, eps))
     if kind in ("moe", "mla_moe"):
         y2 = B.apply_moe(p["moe"], h2, cfg.moe, cfg.ffn_kind)
     else:
         y2 = B.apply_ffn(p["ffn"], h2, cfg.ffn_kind)
     if "post_norm2" in p:
         y2 = B.apply_rmsnorm(p["post_norm2"], y2, eps)
-    return x + y2, new_cache
+    return x + constrain_batch(y2), new_cache
 
 
 def _tree_slice(tree, i: int):
@@ -354,14 +365,16 @@ def _sinusoidal(positions: torch.Tensor, d: int) -> torch.Tensor:
 
 
 def embed_tokens(params: Params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    x = params["embed"][tokens]
+    # F.embedding, not an index: DTensor shards its backward over a
+    # vocab-sharded table (the dry run), not the index's (an index_put)
+    x = torch.nn.functional.embedding(tokens, params["embed"])
     if cfg.emb_scale:
         x = x * math.sqrt(cfg.d_model)
     return x
 
 
 def unembed(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    x = B.apply_rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    x = batch_only(B.apply_rmsnorm(params["final_norm"], x, cfg.norm_eps))
     logits = x @ (params["embed"].T if cfg.tie_embeddings else params["head"])
     logits = B.softcap(logits.to(torch.float32), cfg.final_softcap)
     mesh = get_mesh()
