@@ -11,7 +11,10 @@ Each phase prints one JSON line:
            path gives it (max abs error beside the tolerance; kernel, plain,
            bound and, where one PyTorch call computes the same function,
            library ms; for mp_sweep also per_level_ms, its levels as one
-           mp_update launch each, held against the plain version too)
+           mp_update launch each, held against the plain version too); and
+           the JAX kernels' width envelope at the same shapes: banked_mlp,
+           mp_update and mp_sweep at hidden 100 (zero-padded to 104) and
+           mp_sweep at hidden 128 (its 16-row fp32 z tile)
   serve    a full-width COSTREAM model (5 metrics x 3 members, hidden 64,
            use_pallas=True) answering estimate / score / optimize requests and
            the cross-query estimate_many / score_many, each answer held against
@@ -39,8 +42,9 @@ Each phase prints one JSON line:
            plain and the CPU; its op_upd launch in the kernel table), its gradient
            against the plain path and a step split; launch/train.py's ablations,
            flat, extrap and finetune stages, cut in epochs and corpus sizes (each
-           run's validation loss below its value at init; each stage's launches
-           counted; flat predictions on the card against the CPU); the
+           run's validation loss below its value at init, but extrap's, which
+           extrap_parity holds against the CPU; each stage's launches counted;
+           flat predictions on the card against the CPU); the
            ablate_traditional_* models served on the card (score of 1024
            candidates, optimize, per-request score_many) against the CPU
   service  that trained bundle behind PlacementService on the card (default
@@ -100,6 +104,13 @@ Each phase prints one JSON line:
            + 448 tokens, xlstm 2 x 512): a warm step, 3 steps split into forward,
            backward and optimizer, every loss and grad norm finite, tokens/s, peak
            memory; none of the six kernels launches
+  examples the port's five examples (repro_torch.examples) through their
+           main(argv) on the card: quickstart, optimize_placement and
+           controller_demo at their defaults, serve_lm at its default (the
+           reduced recurrentgemma-2b; linear_scan launches), train_lm on the
+           full xlstm-125m with a failure injected (exit 17), the restart from
+           its checkpoint and an uninterrupted run, whose losses the restart
+           must match within TRAJ_REL; time and peak memory of each
   dryrun   the port's dry run (launch/dryrun.py), in child processes started
            side by side once every timed phase is over (they run on the host
            CPU, every tensor on the meta device, so no timing shares the host
@@ -114,6 +125,11 @@ Each phase prints one JSON line:
            the measured time fails) and its predicted peak beside
            max_memory_allocated; the RecurrentGemma prefill's count must charge
            its 18 linear_scan launches by the kernel's formula
+  extrap_parity the baselines phase's 40 extrap runs trained again on the CPU
+           plain path (same corpora, init and batch order) in child processes
+           beside the dry run's, each also under kernel-sized perturbations;
+           each run's validation loss on the card within TRAJ_REL of the CPU's
+           plus twice the perturbed runs' spread (EXTRAP_PERTURB)
 then the kernel summary line, the card's name and power limit, and the status
 line.  Any failure exits nonzero; so does a machine without a CUDA device, or
 a directory that holds this script and nothing else of the repository.
@@ -793,15 +809,16 @@ def baselines_phase(corpus, host_batch, query, counted, device_split, timed, che
         with torch.no_grad():
             return float(ensemble_loss(nn.to_device(p, dev), gd, yd, cfg, batch_banding(graphs)) / cfg.n_ensemble)
 
-    def runs_record(results, init_vals, stage):
+    def runs_record(results, init_vals, stage, below_init=True):
         """Each run's record; fails unless every run trained (nothing was
-        stored already) and ended below its validation loss at init."""
+        stored already) and (``below_init``) ended below its validation loss
+        at init."""
         if any(r is None for r in results.values()):
             raise AssertionError(f"{stage}: a run found its artifact stored already: {results}")
         rec = {n: {"steps": r.steps, "val_loss": [h["val_loss"] for h in r.history], "best_val": r.best_val,
                    "val_at_init": init_vals[n], "seconds": sum(h["seconds"] for h in r.history)}
                for n, r in results.items()}
-        worse = [n for n, r in results.items() if not r.best_val < init_vals[n]]
+        worse = [n for n, r in results.items() if below_init and not r.best_val < init_vals[n]]
         if worse:
             emit({**out, stage: rec})
             raise AssertionError(f"{stage}: validation loss did not fall below its value at init for {worse}")
@@ -892,12 +909,22 @@ def baselines_phase(corpus, host_batch, query, counted, device_split, timed, che
                 name = f"extrap_{direction}_{dim}_{m}"
                 ext_cfgs[name] = CostModelConfig(metric=m, gnn=gnn.GNNConfig(use_pallas=True), n_ensemble=1)
                 ext_init[name] = val_at_init(graphs, label_array(vt, m), ext_cfgs[name])
+    # each run is held against the same run on the CPU plain path
+    # (extrap_parity, from child processes started with the dry run's), not
+    # against its value at init: one epoch on 400 traces does not lower every
+    # run's loss, on the CPU either (PERF.md)
     out["extrap"] = {"seconds": ext_s / 1e3, "corpus_traces": SIZES["extrap_traces"], "epochs": SIZES["extrap_epochs"],
-                     "launches": ext_launches, "runs": runs_record(ext, ext_init, "extrap")}
+                     "launches": ext_launches, "runs": runs_record(ext, ext_init, "extrap", below_init=False)}
     want = launches_per_forward(ext, ext_cfgs)
     if {k: ext_launches[k] for k in want} != want:
         emit(out)
         raise AssertionError(f"extrap: launches {ext_launches}, want {want}")
+    extrap_dir = Path(tempfile.mkdtemp(prefix="extrap_cpu_", dir=ROOT / "build"))
+    for direction in ("stronger", "weaker"):
+        for dim in ("ram", "cpu", "bandwidth", "latency"):
+            shutil.copy(artifacts.path("corpus", f"extrap_{direction}_{dim}.torch.pkl"), extrap_dir)
+    with open(extrap_dir / "request.json", "w") as f:
+        json.dump({"epochs": SIZES["extrap_epochs"]}, f)
 
     # -- stage_finetune: main_throughput on the filter-chain corpus ---------------------------
     launch_train.FINETUNE_N = SIZES["finetune_traces"]
@@ -949,7 +976,7 @@ def baselines_phase(corpus, host_batch, query, counted, device_split, timed, che
     out["max_memory_allocated_bytes"] = int(torch.cuda.max_memory_allocated())
     out["seconds"] = time.perf_counter() - t_phase
     emit(out)
-    return row
+    return row, (extrap_dir, out["extrap"]["runs"])
 
 
 def distributed_phase(params0, batch, cfg, opt, loop_cfg, counted, cuda_ms, timed, card):
@@ -1729,6 +1756,246 @@ def dryrun_counts(request_path, out_path):
     return 0
 
 
+#: The examples phase's train_lm run: the real 125M config that the JAX
+#: script's docstring names, a crash injected after a step that follows a
+#: checkpoint, then the restart, against an uninterrupted run of the same steps.
+TRAIN_LM_STEPS = 6
+TRAIN_LM_FLAGS = ("--arch", "xlstm-125m", "--scale", "full", "--steps", str(TRAIN_LM_STEPS), "--ckpt-every", "2")
+TRAIN_LM_CRASH_AT = 3
+
+
+def examples_phase(counted, card):
+    """The port's five examples (``repro_torch.examples``) through their
+    ``main(argv)`` on the card, one line each with its time, peak memory and
+    the launches of the six kernels: ``quickstart``, ``optimize_placement`` and
+    ``controller_demo`` at their defaults (not ``--smoke``), ``serve_lm`` at its
+    default (the reduced ``recurrentgemma-2b``, whose RG-LRU scan launches
+    ``linear_scan``), and ``train_lm`` at ``TRAIN_LM_FLAGS``: a run that
+    exits 17 after step ``TRAIN_LM_CRASH_AT``, the restart from its newest
+    checkpoint, and an uninterrupted run, whose losses the restart must match
+    within ``TRAJ_REL``.  Each example's own output goes to a log under
+    ``build/``; the phase fails if one raises, returns non-finite values or
+    does not launch what its path launches."""
+    import contextlib
+    import math
+
+    import torch
+
+    from repro_torch.examples import controller_demo, optimize_placement, quickstart, serve_lm, train_lm
+
+    t_phase = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    where = Path(tempfile.mkdtemp(prefix="examples_", dir=ROOT / "build"))
+    costream = ("banked_mlp", "mp_update", "mp_sweep", "gather_sum", "segment_sum")
+    dev = ["--device", DEVICE]
+    out = {"phase": "examples", "card": card, "runs": {}}
+
+    def run(name, fn, argv, need=(), never=costream + ("linear_scan",)):
+        """``fn(argv)`` with its output to ``where/<name>.log``, counted; its
+        result and a record of time, peak memory and launches."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with open(where / f"{name}.log", "a") as log, contextlib.redirect_stdout(log):
+            got, launches = counted(f"examples_{name}", lambda: fn(argv), need, never)
+        rec = {"argv": argv, "seconds": time.perf_counter() - t0,
+               "max_memory_allocated_bytes": int(torch.cuda.max_memory_allocated()), "launches": launches}
+        return got, rec
+
+    def finite(*xs):
+        return all(math.isfinite(float(x)) for x in xs)
+
+    # quickstart's stream goes through PlacementService's merged cross-query
+    # forward, which runs seg_gather whatever use_pallas says; its model, as
+    # the JAX script configures it, runs the other kernels' plain versions
+    got, rec = run("quickstart", quickstart.main, dev, need=("gather_sum", "segment_sum"),
+                   never=("banked_mlp", "mp_update", "mp_sweep", "linear_scan"))
+    rec.update(corpus=got["corpus"], epochs=got["epochs"], best_val=got["best_val"], qerror=got["qerror"],
+               stream=got["stream"])
+    out["runs"]["quickstart"] = rec
+    if not (finite(got["best_val"], *[q["predicted_ms"] for q in got["queries"]], *got["stream"]["best"])
+            and got["stream"]["forwards"] >= 1):
+        emit(out)
+        raise AssertionError(f"examples: quickstart returned {got}")
+
+    got, rec = run("optimize_placement", optimize_placement.main, dev)
+    rec.update(queries=len(got["queries"]), median_speedup=got["median_speedup"],
+               candidates_per_s=got["candidates_per_s"])
+    out["runs"]["optimize_placement"] = rec
+    if not (got["queries"] and finite(*[q["costream_ms"] for q in got["queries"]], got["median_speedup"])):
+        emit(out)
+        raise AssertionError(f"examples: optimize_placement returned {got}")
+
+    got, rec = run("controller_demo", controller_demo.main, dev)
+    rec.update({k: got[k] for k in ("final_cost_ms", "static_final_cost_ms", "ratio", "migrations", "replans",
+                                    "replan_p95_ms")})
+    out["runs"]["controller_demo"] = rec  # main raises unless the controller beats the static fleet
+
+    got, rec = run("serve_lm", serve_lm.main, dev, need=("linear_scan",), never=costream)
+    rec.update({k: got[k] for k in ("arch", "params", "batch", "tokens", "tokens_per_s", "logits_finite")})
+    out["runs"]["serve_lm"] = rec
+    if not got["logits_finite"]:
+        emit(out)
+        raise AssertionError("examples: serve_lm's logits are not finite")
+
+    flags = [*TRAIN_LM_FLAGS, *dev]
+    crash_dir, whole_dir = str(where / "ckpt_crash"), str(where / "ckpt_whole")
+
+    def crash(argv):
+        try:
+            train_lm.main(argv)
+        except SystemExit as e:
+            return e.code
+        return None
+
+    code, rec_crash = run("train_lm", crash, flags + ["--ckpt-dir", crash_dir, "--inject-failure", str(TRAIN_LM_CRASH_AT)])
+    resumed, rec_resume = run("train_lm", train_lm.main, flags + ["--ckpt-dir", crash_dir])
+    whole, rec_whole = run("train_lm", train_lm.main, flags + ["--ckpt-dir", whole_dir])
+    rel = {s: abs(resumed["losses"][s] - whole["losses"][s]) / abs(whole["losses"][s]) for s in resumed["losses"]}
+    out["runs"]["train_lm"] = {
+        "arch": whole["arch"], "params": whole["params"], "crash": {**rec_crash, "exit": code},
+        "resume": {**rec_resume, "resumed_from": resumed["resumed_from"], "losses": resumed["losses"]},
+        "uninterrupted": {**rec_whole, "losses": whole["losses"], "grad_norms": whole["grad_norms"]},
+        "max_rel_loss_diff": max(rel.values(), default=None), "bound": f"{TRAJ_REL} relative (TRAJ_REL)"}
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    if (code != 17 or resumed["resumed_from"] is None or sorted(resumed["losses"]) != list(
+            range(resumed["resumed_from"] + 1, TRAIN_LM_STEPS)) or not finite(*whole["losses"].values())
+            or max(rel.values()) > TRAJ_REL):
+        raise AssertionError(f"examples: train_lm's restart (exit {code}, from {resumed['resumed_from']}) "
+                             f"differs from the uninterrupted run: {rel}")
+    shutil.rmtree(where, ignore_errors=True)
+
+
+#: The extrap parity check.  Each extrap run on the card is held against the
+#: same run (corpus, init, batch order) on the CPU plain path, epoch by epoch.
+#: The kernels differ from the plain versions by rounding, about 1e-6 of a
+#: state at every forward (TRAJ_REL's derivation above).  Where a run's
+#: training amplifies rounding (400 traces, one step a signature bucket, the
+#: loss swinging between 1e-9 and 14), it amplifies any perturbation of that
+#: size alike, and may settle on another of a few nearby outcomes (a unit's
+#: ReLU gate closing for good or not): on a CPU, one run at 150 traces ended
+#: 0.8% apart on one and on two threads.  So the CPU trains each run again
+#: EXTRAP_PERTURB_RUNS times with every parameter multiplied by 1 +- 1e-6
+#: (EXTRAP_PERTURB, seeded signs) before each step, and the card's validation
+#: loss must lie within TRAJ_REL of the reference's plus twice the largest
+#: distance of those perturbed runs from it: a run that does not amplify
+#: rounding is held to TRAJ_REL, one that does to what its own plain
+#: reference does under kernel-sized rounding.  EXTRAP_CPU_PROCS child
+#: processes share the runs.
+EXTRAP_PERTURB = 1e-6
+EXTRAP_PERTURB_RUNS = 3
+EXTRAP_CPU_PROCS = 4
+
+
+def extrap_cpu(where, part, parts):
+    """The ``extrap_cpu`` child: runs ``part::parts`` of the 40 extrap runs on
+    the CPU plain path, from the corpora the card's stage built (copied to
+    ``where`` with the epochs in ``request.json``), each as
+    ``launch/train.py``'s ``_train_one`` trains it, and again with
+    kernel-sized perturbations (``EXTRAP_PERTURB``); writes each run's
+    validation losses to ``where/<part>.json``."""
+    import pickle
+
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import nn
+    from repro_torch.core import gnn
+    from repro_torch.core.model import ALL_METRICS, CostModelConfig
+    from repro_torch.launch import train as launch_train
+    from repro_torch.training import batching, loop
+
+    torch.set_num_threads(1)
+    with open(where / "request.json") as f:
+        epochs = json.load(f)["epochs"]
+    runs = [(d, m, metric) for d in ("stronger", "weaker") for m in ("ram", "cpu", "bandwidth", "latency")
+            for metric in ALL_METRICS][part::parts]
+    step = loop.train_step
+    out = {}
+    for direction, dim, metric in runs:
+        with open(where / f"extrap_{direction}_{dim}.torch.pkl", "rb") as f:
+            traces = pickle.load(f)
+        tr, va, _ = batching.split_dataset(batching.dataset_from_traces(traces, metric), seed=launch_train.SPLIT_SEED)
+        cfg = CostModelConfig(metric=metric, gnn=gnn.GNNConfig(use_pallas=True), n_ensemble=1)
+        tcfg = loop.TrainConfig(epochs=epochs, batch_size=512, lr=1.5e-3, seed=0, exact_banding=True)
+        rec = {}
+        for seed in (None, *range(1, EXTRAP_PERTURB_RUNS + 1)):
+            if seed is None:
+                loop.train_step = step
+            else:
+                gen = torch.Generator().manual_seed(seed)
+
+                def perturbed(params, *args, gen=gen):
+                    params = nn.tree_map(lambda t: t * (1 + EXTRAP_PERTURB * (
+                        2 * torch.randint(0, 2, t.shape, generator=gen) - 1)), params)
+                    return step(params, *args)
+
+                loop.train_step = perturbed
+            res = loop.train_cost_model(tr, va, cfg, tcfg, device="cpu")
+            rec["reference" if seed is None else f"perturbed_{seed}"] = [h["val_loss"] for h in res.history]
+        loop.train_step = step
+        out[f"extrap_{direction}_{dim}_{metric}"] = rec
+    with open(where / f"{part}.json", "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def start_extrap_cpu(where):
+    """Start ``EXTRAP_CPU_PROCS`` ``extrap_cpu`` children on the host CPU."""
+    procs = []
+    for i in range(EXTRAP_CPU_PROCS):
+        with open(where / f"{i}.log", "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--extrap-cpu", str(where), str(i),
+                 str(EXTRAP_CPU_PROCS)], stdout=log, stderr=subprocess.STDOUT))
+    return procs
+
+
+def extrap_parity_phase(procs, where, card_runs, card):
+    """The extrap runs' validation losses on the card against the CPU plain
+    path (``extrap_cpu``), epoch by epoch, within TRAJ_REL plus twice the
+    larger distance of the perturbed CPU runs from the reference; one line
+    with every run's numbers.  Fails if a child failed or a run is outside."""
+    t0 = time.perf_counter()
+    cpu = {}
+    for i, proc in enumerate(procs):
+        rc = proc.wait(timeout=900)
+        if rc != 0:
+            print((where / f"{i}.log").read_text()[-6000:], file=sys.stderr)
+            raise AssertionError(f"extrap_parity: child process {i} exited {rc}")
+        with open(where / f"{i}.json") as f:
+            cpu.update(json.load(f))
+    runs, bad = {}, []
+    for name, got in card_runs.items():
+        ref = cpu[name]["reference"]
+        pert = [cpu[name][k] for k in cpu[name] if k != "reference"]
+        if len(ref) != len(got["val_loss"]):
+            bad.append(f"{name}: {len(got['val_loss'])} epochs on the card, {len(ref)} on the CPU")
+            continue
+        rows = []
+        for e, (c, a) in enumerate(zip(got["val_loss"], ref)):
+            spread = max(abs(p[e] - a) for p in pert)
+            bound = TRAJ_REL * abs(a) + 2.0 * spread
+            rows.append({"card": c, "cpu": a, "rel": abs(c - a) / abs(a), "perturbed_rel": spread / abs(a),
+                         "bound_rel": bound / abs(a)})
+            if not abs(c - a) <= bound:
+                bad.append(f"{name} epoch {e}: card {c}, cpu {a}, bound {bound}")
+        runs[name] = {"epochs": rows, "val_at_init": got["val_at_init"], "best_val": got["best_val"],
+                      "cpu_best_below_init": min(ref) < got["val_at_init"]}
+    rel = [r["rel"] for v in runs.values() for r in v["epochs"]]
+    emit({"phase": "extrap_parity", "card": card, "runs": len(runs), "children": len(procs),
+          "bound": f"|card - cpu| <= {TRAJ_REL} |cpu| + 2 max |perturbed - cpu| ({EXTRAP_PERTURB_RUNS} runs, "
+                   f"params x (1 +- {EXTRAP_PERTURB}) before each step)",
+          "max_rel": max(rel, default=None), "median_rel": float(sorted(rel)[len(rel) // 2]) if rel else None,
+          "above_traj_rel": sum(r > TRAJ_REL for r in rel),
+          "below_init_on_card": sum(v["best_val"] < v["val_at_init"] for v in runs.values()),
+          "below_init_on_cpu": sum(v["cpu_best_below_init"] for v in runs.values()),
+          "wait_s": time.perf_counter() - t0, "per_run": runs})
+    if bad or len(runs) != len(cpu):
+        raise AssertionError(f"extrap_parity: {bad or sorted(set(cpu) ^ set(runs))}")
+
+
 def start_dryrun(where):
     """Start ``dryrun_counts`` in five child processes side by side, on the
     host CPU: one for each hillclimb baseline with its variants, and two for
@@ -1827,6 +2094,8 @@ def dryrun_phase(lm, archs, archs_train, card, n_rec, lm_width):
 def main() -> int:
     if sys.argv[1:2] == ["--dryrun-counts"]:  # the dryrun phase's child process
         return dryrun_counts(sys.argv[2], sys.argv[3])
+    if sys.argv[1:2] == ["--extrap-cpu"]:  # the extrap parity's child process
+        return extrap_cpu(Path(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]))
     # the lm_train phase's step frees and makes tensors of many sizes (per-leaf
     # optimizer temporaries as large as the embedding, (B, S, V) float32
     # gradients of the logits); without expandable segments the caching
@@ -2084,6 +2353,47 @@ def main() -> int:
         lambda: mp_sweep_ref(stacked["op_upd"], h_b, a_b, depth_b, mask_b, sweep_levels),
         sweep_flops, sweep_bytes, yardsticks={"per_level": per_level}))
     del h_b
+
+    # the JAX kernels' width envelope (layer widths 1 to 128) at the same
+    # shapes and a hidden width of 100 (no multiple of 8: the wrappers run the
+    # banks zero-padded to 104) and of 128 (mp_sweep's 16-row fp32 z tile);
+    # held against the plain versions and timed, but not the path's
+    # representative case, and bounded by the unpadded work
+    def env_bank(Hw, F, T=5):
+        def w(*shape):
+            return ((2.0 / (shape[-2] + shape[-1])) ** 0.5 * torch.randn(shape, generator=rng)).to(dev)
+        return {"layers": [{"w": w(E, T, F, Hw), "b": (0.1 * torch.randn((E, T, Hw), generator=rng)).to(dev)},
+                           {"w": w(E, T, Hw, Hw), "b": (0.1 * torch.randn((E, T, Hw), generator=rng)).to(dev)}]}
+
+    for Hw in (100, 128):
+        bank_w = env_bank(Hw, 2 * Hw)
+        if Hw == 100:
+            x_env = torch.randn((E, B, N, 2 * Hw), generator=rng).to(dev)
+            rows.append({**bank_case(f"op_upd at hidden {Hw}, F={2 * Hw}, T=5 (widths zero-padded to 104)", bank_w,
+                                     x_env, SLOT_RANGES, False), "envelope": True})
+            del x_env
+            h_env = torch.randn((E, B, N, Hw), generator=rng).to(dev)
+            n_sel = E * int(((g.op_depth == 2) & (g.op_mask > 0)).sum())
+            rows.append({**compare(
+                "mp_update", f"scan step at hidden {Hw}, d=2, per-graph fields (widths zero-padded to 104)",
+                lambda: mp_ops.mp_update(bank_w, h_env, g.a_flow, g.op_depth, g.op_mask, 2, SLOT_RANGES),
+                lambda: mp_update_ref(bank_w, h_env, g.a_flow, g.op_depth, g.op_mask, 2, SLOT_RANGES),
+                2.0 * n_sel * (N * Hw + 2 * Hw * Hw + Hw * Hw),
+                4.0 * (2 * h_env.numel() + E * 5 * (3 * Hw * Hw + 2 * Hw)) + 4.0 * (
+                    g.a_flow.numel() + g.op_depth.numel() + g.op_mask.numel())), "envelope": True})
+            del h_env
+        h_env = torch.randn((E, B, len(band.rows), Hw), generator=rng).to(dev)
+        env_flops = sum(2.0 * E * int(((depth_b[:, s:e] == d) & (mask_b[:, s:e] > 0)).sum()) * (p * Hw + 3 * Hw * Hw)
+                        for d, (s, e), _, p in sweep_levels)
+        env_bytes = (4.0 * (2 * h_env.numel() + E * 5 * (3 * Hw * Hw + 2 * Hw))
+                     + 4.0 * (a_b.numel() + depth_b.numel() + mask_b.numel()))
+        rows.append({**compare(
+            "mp_sweep", f"estimate_many at hidden {Hw}: {B} graphs, {len(band.rows)} trimmed rows, "
+            f"{len(sweep_levels)} levels" + (" (widths zero-padded to 104)" if Hw % 8 else " (16-row fp32 z tile)"),
+            lambda: sweep_ops.mp_sweep(bank_w, h_env, a_b, depth_b, mask_b, sweep_levels),
+            lambda: mp_sweep_ref(bank_w, h_env, a_b, depth_b, mask_b, sweep_levels),
+            env_flops, env_bytes), "envelope": True})
+        del h_env, bank_w
 
     # gather_sum / segment_sum at score_many's shapes: the 16-structure drain's
     # rows (score_many runs them as one chunk, unpadded) on its trimmed
@@ -2603,8 +2913,9 @@ def main() -> int:
 
     # -- 6. baselines: the traditional-MP GNN, the flat vector, the other training
     # stages, in the train phase's artifact root ------------------------------------
-    rows.append(baselines_phase(corpus, host_batch, queries[2], counted, device_split, timed, check_answers, bank_case,
-                                step_split, card))
+    row, extrap_card = baselines_phase(corpus, host_batch, queries[2], counted, device_split, timed, check_answers,
+                                       bank_case, step_split, card)
+    rows.append(row)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -2746,10 +3057,25 @@ def main() -> int:
     torch.cuda.empty_cache()
     archs_train = lm_archs_train_phase(counted, timed, card, costream + ("linear_scan",))
 
-    # -- 13. dryrun: the hillclimb cells on the 16 x 16 mesh, and each measured LM step's count on one GPU --
-    dryrun_phase(lm, archs, archs_train, card, n_rec, width)
+    # -- 13. examples: the port's five examples through their entry points -----------
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    examples_phase(counted, card)
 
-    # -- 14. kernel summary (the representative case: the most work on the path) ------
+    # -- 14. dryrun: the hillclimb cells on the 16 x 16 mesh, and each measured LM step's count on one GPU;
+    # beside it, the extrap runs trained again on the CPU plain path, and held against the card's --
+    extrap_procs = start_extrap_cpu(extrap_card[0])
+    try:
+        dryrun_phase(lm, archs, archs_train, card, n_rec, width)
+        extrap_parity_phase(extrap_procs, *extrap_card, card)
+    finally:
+        for proc in extrap_procs:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+        shutil.rmtree(extrap_card[0], ignore_errors=True)
+
+    # -- 15. kernel summary (the representative case: the most work on the path) ------
     sources = {
         "banked_mlp": ("src/repro_torch/csrc/banked_mlp.cu", "src/repro/kernels/banked_mlp/kernel.py:53"),
         "mp_update": ("src/repro_torch/csrc/mp_update.cu", "src/repro/kernels/mp_update/kernel.py:64"),
@@ -2761,7 +3087,7 @@ def main() -> int:
     summary = []
     for name, (src, replaces) in sources.items():
         mine = [r for r in rows if r["kernel"] == name]
-        rep = max(mine, key=lambda r: r["flops"])
+        rep = max((r for r in mine if not r.get("envelope")), key=lambda r: r["flops"])
         summary.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": sum(path[name] for path in path_launches.values()),
                         "launches_by_path": {k: v[name] for k, v in path_launches.items() if v[name]},
@@ -2776,7 +3102,7 @@ def main() -> int:
                         "backward_launches_per_train_step": backward[name]["launches_per_step"] if name in backward else 0})
     emit({"kernels": summary})
 
-    # -- 15. the card, 16. status ---------------------------------------------------
+    # -- 16. the card, 17. status ---------------------------------------------------
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -29,7 +29,10 @@
 // tiles: the cp.async loads of the next tile's rows (16 bytes where a row is
 // 16-byte aligned, 4 bytes otherwise: F = 39 rows are 156 bytes) run while the
 // tensor cores work on the current one.  The output goes back through shared
-// memory and out in 16-byte row-contiguous writes.
+// memory and out in 16-byte row-contiguous writes.  Where one type's weights
+// and two 64-row tiles pass a block's shared memory (F = 256 at H1 = H2 =
+// 128: 197.6 KB of weights and 2 x 64 KB of tiles), the tiles take 16 rows
+// instead (2 x 16 KB).
 #include <cuda_runtime.h>
 
 #include "mma_tile.cuh"
@@ -57,6 +60,7 @@ struct TileAt {
   int e, r, row0, rows;
 };
 
+template <int kTileRows>
 __device__ __forceinline__ TileAt locate(const TileTable& table, int B, int i) {
   const int per_member = table.first_tile[table.ranges.n];
   TileAt at;
@@ -64,9 +68,9 @@ __device__ __forceinline__ TileAt locate(const TileTable& table, int B, int i) {
   const int rem = i - at.e * per_member;
   at.r = 0;
   while (at.r + 1 < table.ranges.n && rem >= table.first_tile[at.r + 1]) ++at.r;
-  at.row0 = (rem - table.first_tile[at.r]) * mma::kRows;
+  at.row0 = (rem - table.first_tile[at.r]) * kTileRows;
   const int total = B * (table.ranges.stop[at.r] - table.ranges.start[at.r]);
-  at.rows = min(mma::kRows, total - at.row0);
+  at.rows = min(kTileRows, total - at.row0);
   return at;
 }
 
@@ -94,7 +98,7 @@ __device__ __forceinline__ void load_tile(float* buf, const BankArgs& a, const T
   for (int c = F + sub; c < mma::round8(F); c += 4) buf[mma::act_at(lx, rr, c)] = 0.f;
 }
 
-template <int NTW>
+template <int NTW, int kTileRows>
 __global__ void __launch_bounds__(mma::kThreads, NTW >= 8 ? 1 : 2)
     banked_mlp_kernel(BankArgs a, TileTable table, int n_tiles, int tiles_per_block) {
   extern __shared__ float4 smem4[];
@@ -105,15 +109,16 @@ __global__ void __launch_bounds__(mma::kThreads, NTW >= 8 ? 1 : 2)
   const mma::Dims d = a.dims;
   float* weights = smem;
   float* const buf0 = weights + mma::weight_floats(d);  // the ring: buf0, buf0 + tile_floats
+  const int ring = mma::tile_floats(d, kTileRows);
   const mma::Staged w = mma::staged_at(weights, d);
   const mma::Layout ly = mma::act_layout(d.n2);
 
-  TileAt at = locate(table, a.B, begin);
+  TileAt at = locate<kTileRows>(table, a.B, begin);
   load_tile(buf0, a, table, at);
   mma::cp_async_commit();
   long long staged = -1;  // member * T + type of the staged weights
   for (int i = begin; i < end; ++i) {
-    float* buf = buf0 + ((i - begin) & 1) * mma::tile_floats(d);
+    float* buf = buf0 + ((i - begin) & 1) * ring;
     const long long key = (long long)at.e * a.T + table.ranges.type[at.r];
     if (key != staged) {  // the run enters another (member, type): stage its weights
       __syncthreads();
@@ -124,11 +129,11 @@ __global__ void __launch_bounds__(mma::kThreads, NTW >= 8 ? 1 : 2)
     __syncthreads();          // ... for every thread; the other buffer is free
     TileAt next;
     if (i + 1 < end) {
-      next = locate(table, a.B, i + 1);
-      load_tile(buf0 + ((i + 1 - begin) & 1) * mma::tile_floats(d), a, table, next);
+      next = locate<kTileRows>(table, a.B, i + 1);
+      load_tile(buf0 + ((i + 1 - begin) & 1) * ring, a, table, next);
       mma::cp_async_commit();
     }
-    mma::mlp_tile<NTW>(buf, at.rows, d, w);
+    mma::mlp_tile<NTW, false, kTileRows>(buf, at.rows, d, w);
     const int rr = threadIdx.x >> 2;
     if (rr < at.rows) {
       float* dst = a.y + ((long long)at.e * a.B * a.N + slot_row(table, at.r, a.N, at.row0 + rr)) * d.n2;
@@ -138,10 +143,10 @@ __global__ void __launch_bounds__(mma::kThreads, NTW >= 8 ? 1 : 2)
   }
 }
 
-template <int NTW>
+template <int NTW, int kTileRows>
 static cudaError_t launch(const BankArgs& a, const TileTable& table, int E, size_t smem, int sms,
                           cudaStream_t stream) {
-  const auto kernel = banked_mlp_kernel<NTW>;
+  const auto kernel = banked_mlp_kernel<NTW, kTileRows>;
   cudaError_t err = mma::allow_shared_memory(reinterpret_cast<const void*>(kernel), smem);
   if (err != cudaSuccess) return err;
   int per_sm = 0;  // blocks an SM at this shared memory
@@ -155,6 +160,13 @@ static cudaError_t launch(const BankArgs& a, const TileTable& table, int E, size
   blocks = (n_tiles + per_block - 1) / per_block;
   kernel<<<(unsigned)blocks, mma::kThreads, smem, stream>>>(a, table, (int)n_tiles, per_block);
   return cudaGetLastError();
+}
+
+template <int NTW>
+static cudaError_t launch_plan(const BankArgs& a, const TileTable& table, int E, size_t smem, int sms, int tile_rows,
+                               cudaStream_t stream) {
+  return tile_rows == mma::kRows ? launch<NTW, mma::kRows>(a, table, E, smem, sms, stream)
+                                 : launch<NTW, 16>(a, table, E, smem, sms, stream);
 }
 
 }  // namespace repro_torch
@@ -177,6 +189,14 @@ extern "C" int banked_mlp_launch(const float* x, long long x_member_stride, cons
   if (ranges.n < 1 || ranges.n > kMaxRanges || E < 1 || B < 1 || N < 1 || !mma::widths_ok(dims) ||
       (reinterpret_cast<size_t>(y) & 15) != 0 || (long long)E * B * N >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
+  // 64-row tiles where two of them fit beside the weights, else 16-row tiles
+  const mma::DeviceInfo card = mma::device_info(device);
+  auto bytes = [&](int rows) {
+    return sizeof(float) * (mma::weight_floats(dims) + 2LL * mma::tile_floats(dims, rows));
+  };
+  const int tile_rows = bytes(mma::kRows) <= (size_t)card.smem_max ? mma::kRows : 16;
+  const size_t smem = bytes(tile_rows);
+  if (smem > (size_t)card.smem_max) return (int)cudaErrorInvalidValue;
   TileTable table;
   table.ranges = ranges;
   table.first_tile[0] = 0;
@@ -185,23 +205,20 @@ extern "C" int banked_mlp_launch(const float* x, long long x_member_stride, cons
         ranges.type[r] < 0 || ranges.type[r] >= T)
       return (int)cudaErrorInvalidValue;
     const long long rows = (long long)B * (ranges.stop[r] - ranges.start[r]);
-    table.first_tile[r + 1] = table.first_tile[r] + (int)((rows + mma::kRows - 1) / mma::kRows);
+    table.first_tile[r + 1] = table.first_tile[r] + (int)((rows + tile_rows - 1) / tile_rows);
   }
   if ((long long)E * table.first_tile[ranges.n] >= (1LL << 31)) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * (mma::weight_floats(dims) + 2LL * mma::tile_floats(dims));
-  const mma::DeviceInfo card = mma::device_info(device);
-  if (smem > (size_t)card.smem_max) return (int)cudaErrorInvalidValue;
 
   const BankArgs a{x, x_member_stride, w1, b1, w2, b2, y, B, N, T, dims};
   cudaStream_t s = (cudaStream_t)stream;
   switch (mma::n_tiles_per_warp(H1, H2)) {
     case 1:
-      return (int)launch<1>(a, table, E, smem, card.sms, s);
+      return (int)launch_plan<1>(a, table, E, smem, card.sms, tile_rows, s);
     case 2:
-      return (int)launch<2>(a, table, E, smem, card.sms, s);
+      return (int)launch_plan<2>(a, table, E, smem, card.sms, tile_rows, s);
     case 4:
-      return (int)launch<4>(a, table, E, smem, card.sms, s);
+      return (int)launch_plan<4>(a, table, E, smem, card.sms, tile_rows, s);
     default:
-      return (int)launch<8>(a, table, E, smem, card.sms, s);
+      return (int)launch_plan<8>(a, table, E, smem, card.sms, tile_rows, s);
   }
 }

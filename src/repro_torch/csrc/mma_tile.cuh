@@ -49,7 +49,9 @@
 // - a split tile: pair (r, c) at r * (k + 4) + c, in pairs;
 // - a weight matrix with n columns: element (k, c) at k * n + (c ^ 8 (k & 3))
 //   when n % 32 == 0, else at k * s + c with s = 8 mod 32.
-// Widths are multiples of 8 up to 128; the launches refuse others.
+// Widths are multiples of 8 up to 128; the launches refuse others (the
+// wrappers zero-pad a ragged width to the next multiple of 8 and trim the
+// output: zero columns give relu(0) = 0, and zero rows of W2 add nothing).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -110,12 +112,13 @@ __host__ __device__ inline long long weight_floats(Dims d) {
          (long long)d.n1 * weight_layout(d.n2).stride + d.n2;
 }
 
-// Floats of one tile buffer: it holds the input, then the hidden activation, then the output.
-__host__ __device__ inline int tile_floats(Dims d) {
+// Floats of one fp32 tile buffer of `rows` rows: it holds the input, then
+// the hidden activation, then the output.
+__host__ __device__ inline int tile_floats(Dims d, int rows = kRows) {
   int s = act_layout(d.k).stride;
   s = s > act_layout(d.n1).stride ? s : act_layout(d.n1).stride;
   s = s > act_layout(d.n2).stride ? s : act_layout(d.n2).stride;
-  return kRows * s;
+  return rows * s;
 }
 
 // n-tiles per warp for the wider of the two layers: 1, 2, 4 or 8.
@@ -415,15 +418,19 @@ __device__ __forceinline__ void mlp_layers(float* tile, Dims d, Staged w) {
 // purpose: a row of the product depends on its own input row only.  As few
 // row groups as the rows need, so that a short tile (the selected rows of
 // mp_update) still spreads over all 8 warps; NTW is the n-tiles a warp takes
-// with 2 column groups.
+// with 2 column groups.  kMaxRows bounds `rows` (a tile of that many rows).
 template <int NTW, bool kSplit = false, int kMaxRows = kRows>
 __device__ inline void mlp_tile(float* tile, int rows, Dims d, Staged w) {
-  if (rows <= 16)
+  if constexpr (kMaxRows <= 16) {
     mlp_layers<(NTW + 3) / 4, 8, kSplit>(tile, d, w);
-  else if (kMaxRows <= 32 || rows <= 32)
-    mlp_layers<(NTW + 1) / 2, 4, kSplit>(tile, d, w);
-  else
-    mlp_layers<NTW, 2, kSplit>(tile, d, w);
+  } else {
+    if (rows <= 16)
+      mlp_layers<(NTW + 3) / 4, 8, kSplit>(tile, d, w);
+    else if (kMaxRows <= 32 || rows <= 32)
+      mlp_layers<(NTW + 1) / 2, 4, kSplit>(tile, d, w);
+    else
+      mlp_layers<NTW, 2, kSplit>(tile, d, w);
+  }
 }
 
 // Write tile row r (output layout for n columns, n % 8 == 0) to dst, 16 bytes

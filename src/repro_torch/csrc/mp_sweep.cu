@@ -48,6 +48,10 @@
 // `out` instead and copies them into the state after its last stage, so its
 // messages still read the state from before the level.  Row results do not
 // depend on the order of a list, so two launches give bitwise-equal answers.
+// Where one type's weights and a split z tile of 32 rows pass a block's
+// shared memory (H = H1 = 128: 197.6 KB and 66.6 KB), the z tile holds 16
+// fp32 rows instead (16 KB), which the 8 warps split at each fragment load,
+// as banked_mlp does; two graphs' state then fit beside it.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -59,7 +63,8 @@ namespace repro_torch {
 
 constexpr int kMaxLevels = 8;                        // MAX_DEPTH: at most one level per depth
 constexpr int kMaxStages = kMaxLevels * kMaxRanges;  // one stage per (level, type)
-constexpr int kZRows = 32;                           // rows of one z tile, as in mp_update.cu
+constexpr int kZRows = 32;                           // rows of one split z tile, as in mp_update.cu
+constexpr int kZRowsFp32 = 16;                       // rows of one fp32 z tile
 
 struct SweepLevel {
   int depth;                  // the level d being updated
@@ -109,11 +114,11 @@ struct SweepSmem {
   long long tile, h, a, depth, mask, list, count, total;
 };
 
-__host__ __device__ inline SweepSmem sweep_smem(mma::Dims d, int G, int N, int H, int list_rows, bool a_shared,
-                                                bool d_shared, bool m_shared) {
+__host__ __device__ inline SweepSmem sweep_smem(mma::Dims d, bool split, int G, int N, int H, int list_rows,
+                                                bool a_shared, bool d_shared, bool m_shared) {
   SweepSmem s;
   s.tile = mma::weight_floats(d);
-  s.h = s.tile + mma::split_tile_floats(d, kZRows);
+  s.h = s.tile + (split ? mma::split_tile_floats(d, kZRows) : mma::tile_floats(d, kZRowsFp32));
   s.a = s.h + (long long)G * N * H;
   s.depth = s.a + mma::round4((a_shared ? 1LL : G) * N * N);
   s.mask = s.depth + mma::round4((d_shared ? 1LL : G) * N);
@@ -134,16 +139,17 @@ __device__ __forceinline__ void split4(float4 x, float4* dst) {
   dst[1] = make_float4(__uint_as_float(h2), __uint_as_float(l2), __uint_as_float(h3), __uint_as_float(l3));
 }
 
-template <int NTW>
+template <int NTW, bool kSplit>
 __global__ void __launch_bounds__(mma::kThreads, 1)
     mp_sweep_kernel(SweepTensors a, SweepPlan plan, int G) {
+  constexpr int kZ = kSplit ? kZRows : kZRowsFp32;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int e = blockIdx.y;
   const int g0 = blockIdx.x * G;
   const int ng = min(G, a.B - g0);
   const int N = a.N, H = a.H, tid = threadIdx.x;
-  const SweepSmem lay = sweep_smem(a.dims, G, N, H, plan.list_rows, a.a_bs == 0, a.d_bs == 0, a.m_bs == 0);
+  const SweepSmem lay = sweep_smem(a.dims, kSplit, G, N, H, plan.list_rows, a.a_bs == 0, a.d_bs == 0, a.m_bs == 0);
   float* weights = smem;
   float* tile = smem + lay.tile;
   float* hs = smem + lay.h;
@@ -199,7 +205,7 @@ __global__ void __launch_bounds__(mma::kThreads, 1)
   const mma::Dims dm = a.dims;
   long long staged = -1;
   const mma::Staged w = mma::staged_at(weights, dm);
-  const mma::Layout lz = mma::split_layout(dm.k), ly = mma::act_layout(dm.n2);
+  const mma::Layout lz = kSplit ? mma::split_layout(dm.k) : mma::act_layout(dm.k), ly = mma::act_layout(dm.n2);
   const int rows_per_pass = blockDim.x / (H / 4), r_off = tid / (H / 4), c = tid - r_off * (H / 4);
   for (int l = 0; l < plan.n_levels; ++l) {
     const bool direct = !((conflict >> l) & 1);
@@ -213,9 +219,9 @@ __global__ void __launch_bounds__(mma::kThreads, 1)
         mma::stage_weights(weights, dm, key, a.w1, a.b1, a.w2, a.b2);
         staged = key;
       }
-      for (int tile0 = 0; tile0 < n_sel; tile0 += kZRows) {
-        const int rows = min(kZRows, n_sel - tile0);
-        // z = [h_v, msg_v] as (hi, lo) pairs; thread tid builds columns
+      for (int tile0 = 0; tile0 < n_sel; tile0 += kZ) {
+        const int rows = min(kZ, n_sel - tile0);
+        // z = [h_v, msg_v] as (hi, lo) pairs (or fp32 in the fp32 tile); thread tid builds columns
         // 4 c .. 4 c + 3 of rows r_off + j * rows_per_pass (16 rows a pass at
         // H = 64: a thread's rows run one after another)
         if (r_off < rows_per_pass)
@@ -229,13 +235,18 @@ __global__ void __launch_bounds__(mma::kThreads, 1)
               const float4 x = hg[u * (H / 4)];
               m = make_float4(fmaf(w, x.x, m.x), fmaf(w, x.y, m.y), fmaf(w, x.z, m.z), fmaf(w, x.w, m.w));
             }
-            float4* zr = reinterpret_cast<float4*>(tile + 2 * rr * lz.stride);
-            split4(hg[v * (H / 4)], zr + 2 * c);
-            split4(m, zr + H / 2 + 2 * c);
+            if constexpr (kSplit) {
+              float4* zr = reinterpret_cast<float4*>(tile + 2 * rr * lz.stride);
+              split4(hg[v * (H / 4)], zr + 2 * c);
+              split4(m, zr + H / 2 + 2 * c);
+            } else {
+              *reinterpret_cast<float4*>(tile + mma::act_at(lz, rr, 4 * c)) = hg[v * (H / 4)];
+              *reinterpret_cast<float4*>(tile + mma::act_at(lz, rr, H + 4 * c)) = m;
+            }
           }
         mma::cp_async_wait<0>();  // this thread's share of the weights
         __syncthreads();          // z and the weights, for every thread
-        mma::mlp_tile<NTW, true, kZRows>(tile, rows, dm, w);
+        mma::mlp_tile<NTW, kSplit, kZ>(tile, rows, dm, w);
         const int rr = tid >> 2;
         if (rr < rows) {
           const int row = seg[tile0 + rr];
@@ -261,14 +272,21 @@ __global__ void __launch_bounds__(mma::kThreads, 1)
   if (tid == 0) mma::bulk_store(ob, hs, (unsigned)(n_rows * H * sizeof(float)));
 }
 
-template <int NTW>
+template <int NTW, bool kSplit>
 static cudaError_t launch(const SweepTensors& a, const SweepPlan& plan, int E, int G, size_t smem,
                           cudaStream_t stream) {
-  const cudaError_t err = mma::allow_shared_memory(reinterpret_cast<const void*>(mp_sweep_kernel<NTW>), smem);
+  const auto kernel = mp_sweep_kernel<NTW, kSplit>;
+  const cudaError_t err = mma::allow_shared_memory(reinterpret_cast<const void*>(kernel), smem);
   if (err != cudaSuccess) return err;
   dim3 grid((a.B + G - 1) / G, E);
-  mp_sweep_kernel<NTW><<<grid, mma::kThreads, smem, stream>>>(a, plan, G);
+  kernel<<<grid, mma::kThreads, smem, stream>>>(a, plan, G);
   return cudaGetLastError();
+}
+
+template <int NTW>
+static cudaError_t launch_plan(const SweepTensors& a, const SweepPlan& plan, int E, int G, size_t smem, bool split,
+                               cudaStream_t stream) {
+  return split ? launch<NTW, true>(a, plan, E, G, smem, stream) : launch<NTW, false>(a, plan, E, G, smem, stream);
 }
 
 // The kernel's plan of a valid table, false for a table it does not take.
@@ -361,9 +379,12 @@ extern "C" int mp_sweep_launch(const float* h, float* out, const float* a_flow, 
 
   const mma::DeviceInfo card = mma::device_info(device);
   const bool a0 = a_batch_stride == 0, d0 = depth_batch_stride == 0, m0 = mask_batch_stride == 0;
-  auto bytes = [&](int G) {
-    return sizeof(float) * (size_t)sweep_smem(dims, G, N, H, plan.list_rows, a0, d0, m0).total;
+  // the split z tile where one graph fits beside it, else the fp32 tile
+  auto bytes_of = [&](bool split, int G) {
+    return sizeof(float) * (size_t)sweep_smem(dims, split, G, N, H, plan.list_rows, a0, d0, m0).total;
   };
+  const bool split = bytes_of(true, 1) <= (size_t)card.smem_max;
+  auto bytes = [&](int G) { return bytes_of(split, G); };
   // Graphs per block: the most that one block's shared memory holds (one block
   // an SM), and no more than fill the card once over; list rows fit 16 bits.
   const long long fill = ((long long)B * E + card.sms - 1) / card.sms;
@@ -377,12 +398,12 @@ extern "C" int mp_sweep_launch(const float* h, float* out, const float* a_flow, 
   cudaStream_t s = (cudaStream_t)stream;
   switch (mma::n_tiles_per_warp(H1, H)) {
     case 1:
-      return (int)launch<1>(a, plan, E, G, smem, s);
+      return (int)launch_plan<1>(a, plan, E, G, smem, split, s);
     case 2:
-      return (int)launch<2>(a, plan, E, G, smem, s);
+      return (int)launch_plan<2>(a, plan, E, G, smem, split, s);
     case 4:
-      return (int)launch<4>(a, plan, E, G, smem, s);
+      return (int)launch_plan<4>(a, plan, E, G, smem, split, s);
     default:
-      return (int)launch<8>(a, plan, E, G, smem, s);
+      return (int)launch_plan<8>(a, plan, E, G, smem, split, s);
   }
 }

@@ -32,6 +32,10 @@
 // computed every span row and selected afterwards; computing only the
 // selected rows gives the same output, since each row's result depends only
 // on its own inputs.  The order of rows in a list does not change any value.
+// Where one type's weights and a split z tile of 32 rows pass a block's
+// shared memory (H = H1 = 128: 197.6 KB and 66.6 KB), the z tile holds 16
+// fp32 rows instead (16 KB), which the 8 warps split at each fragment load,
+// as banked_mlp does.
 #include <cuda_runtime.h>
 
 #include "mma_tile.cuh"
@@ -69,14 +73,21 @@ struct StepSmem {
 
 // Rows of one z tile.  The selected rows of a block's slot range are few (about
 // one per graph at a scan step), and a tile of (hi, lo) pairs takes twice the
-// shared memory of an fp32 one.
+// shared memory of an fp32 one.  The fp32 tile, where the split one does not
+// fit, holds 16 rows.
 constexpr int kZRows = 32;
+constexpr int kZRowsFp32 = 16;
 
-__host__ __device__ inline StepSmem step_smem(mma::Dims d, int G, int N, int H, bool a_shared,
+// Floats of the z tile: split (hi, lo) pairs of kZRows rows, or kZRowsFp32 fp32 rows.
+__host__ __device__ inline long long z_tile_floats(mma::Dims d, bool split) {
+  return split ? mma::split_tile_floats(d, kZRows) : mma::tile_floats(d, kZRowsFp32);
+}
+
+__host__ __device__ inline StepSmem step_smem(mma::Dims d, bool split, int G, int N, int H, bool a_shared,
                                               bool d_shared, bool m_shared) {
   StepSmem s;
   s.tile = mma::weight_floats(d);
-  s.h = s.tile + mma::split_tile_floats(d, kZRows);
+  s.h = s.tile + z_tile_floats(d, split);
   s.a = s.h + (long long)G * N * H;
   s.depth = s.a + mma::round4((a_shared ? 1LL : G) * N * N);
   s.mask = s.depth + mma::round4((d_shared ? 1LL : G) * N);
@@ -94,16 +105,17 @@ __device__ __forceinline__ int next_selected(const SlotRanges& ranges, const int
   return r;
 }
 
-template <int NTW>
+template <int NTW, bool kSplit>
 __global__ void __launch_bounds__(mma::kThreads, 1)
     mp_update_kernel(StepTensors a, StepArgs args, int G) {
+  constexpr int kZ = kSplit ? kZRows : kZRowsFp32;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int e = blockIdx.y;
   const int g0 = blockIdx.x * G;
   const int ng = min(G, a.B - g0);
   const int N = a.N, H = a.H, tid = threadIdx.x;
-  const StepSmem lay = step_smem(a.dims, G, N, H, a.a_bs == 0, a.d_bs == 0, a.m_bs == 0);
+  const StepSmem lay = step_smem(a.dims, kSplit, G, N, H, a.a_bs == 0, a.d_bs == 0, a.m_bs == 0);
   float* weights = smem;
   float* tile = smem + lay.tile;
   float* hs = smem + lay.h;
@@ -177,7 +189,7 @@ __global__ void __launch_bounds__(mma::kThreads, 1)
 
   // 4. per selected slot range: z tiles through the MLP
   const mma::Staged w = mma::staged_at(weights, d);
-  const mma::Layout lz = mma::split_layout(d.k), ly = mma::act_layout(d.n2);
+  const mma::Layout lz = kSplit ? mma::split_layout(d.k) : mma::act_layout(d.k), ly = mma::act_layout(d.n2);
   long long staged = r0 < args.ranges.n ? et + args.ranges.type[r0] : -1;
   for (int r = r0; r < args.ranges.n; r = next_selected(args.ranges, count, r)) {
     const int n_sel = count[r];
@@ -187,10 +199,11 @@ __global__ void __launch_bounds__(mma::kThreads, 1)
       mma::stage_weights(weights, d, key, a.w1, a.b1, a.w2, a.b2);
       staged = key;
     }
-    for (int tile0 = 0; tile0 < n_sel; tile0 += kZRows) {
-      const int rows = min(kZRows, n_sel - tile0);
-      // z = [h_v, msg_v] as (hi, lo) pairs, split once here for all 8 warps;
-      // thread tid builds column tid % H of rows tid / H + k * rows_per_pass
+    for (int tile0 = 0; tile0 < n_sel; tile0 += kZ) {
+      const int rows = min(kZ, n_sel - tile0);
+      // z = [h_v, msg_v] as (hi, lo) pairs, split once here for all 8 warps
+      // (or as fp32 in the fp32 tile); thread tid builds column tid % H of
+      // rows tid / H + k * rows_per_pass
       const int rows_per_pass = blockDim.x / H, r_off = tid / H, c = tid - r_off * H;
       if (r_off < rows_per_pass)
         for (int rr = r_off; rr < rows; rr += rows_per_pass) {
@@ -207,16 +220,22 @@ __global__ void __launch_bounds__(mma::kThreads, 1)
             m3 = fmaf(ag[(u + 3) * N], hg[(u + 3) * H], m3);
           }
           for (; u < args.parent_rows; ++u) m0 = fmaf(ag[u * N], hg[u * H], m0);
-          uint32_t hi, lo;
-          float2* zr = reinterpret_cast<float2*>(tile) + rr * lz.stride;
-          mma::split(hg[v * H], hi, lo);
-          zr[c] = make_float2(__uint_as_float(hi), __uint_as_float(lo));
-          mma::split((m0 + m1) + (m2 + m3), hi, lo);
-          zr[H + c] = make_float2(__uint_as_float(hi), __uint_as_float(lo));
+          const float msg = (m0 + m1) + (m2 + m3);
+          if constexpr (kSplit) {
+            uint32_t hi, lo;
+            float2* zr = reinterpret_cast<float2*>(tile) + rr * lz.stride;
+            mma::split(hg[v * H], hi, lo);
+            zr[c] = make_float2(__uint_as_float(hi), __uint_as_float(lo));
+            mma::split(msg, hi, lo);
+            zr[H + c] = make_float2(__uint_as_float(hi), __uint_as_float(lo));
+          } else {
+            tile[mma::act_at(lz, rr, c)] = hg[v * H];
+            tile[mma::act_at(lz, rr, H + c)] = msg;
+          }
         }
       mma::cp_async_wait<0>();  // this thread's share of the weights
       __syncthreads();          // z and the weights, for every thread
-      mma::mlp_tile<NTW, true, kZRows>(tile, rows, d, w);
+      mma::mlp_tile<NTW, kSplit, kZ>(tile, rows, d, w);
       const int rr = tid >> 2;
       if (rr < rows) {
         const int row = seg[tile0 + rr], gi = row / N, v = row - gi * N;
@@ -227,14 +246,21 @@ __global__ void __launch_bounds__(mma::kThreads, 1)
   }
 }
 
-template <int NTW>
+template <int NTW, bool kSplit>
 static cudaError_t launch(const StepTensors& a, const StepArgs& args, int E, int G, size_t smem,
                           cudaStream_t stream) {
-  const cudaError_t err = mma::allow_shared_memory(reinterpret_cast<const void*>(mp_update_kernel<NTW>), smem);
+  const auto kernel = mp_update_kernel<NTW, kSplit>;
+  const cudaError_t err = mma::allow_shared_memory(reinterpret_cast<const void*>(kernel), smem);
   if (err != cudaSuccess) return err;
   dim3 grid((a.B + G - 1) / G, E);
-  mp_update_kernel<NTW><<<grid, mma::kThreads, smem, stream>>>(a, args, G);
+  kernel<<<grid, mma::kThreads, smem, stream>>>(a, args, G);
   return cudaGetLastError();
+}
+
+template <int NTW>
+static cudaError_t launch_plan(const StepTensors& a, const StepArgs& args, int E, int G, size_t smem, bool split,
+                               cudaStream_t stream) {
+  return split ? launch<NTW, true>(a, args, E, G, smem, stream) : launch<NTW, false>(a, args, E, G, smem, stream);
 }
 
 }  // namespace repro_torch
@@ -273,7 +299,9 @@ extern "C" int mp_update_launch(const float* h, float* out, const float* a_flow,
 
   const mma::DeviceInfo card = mma::device_info(device);
   const bool a0 = a_batch_stride == 0, d0 = depth_batch_stride == 0, m0 = mask_batch_stride == 0;
-  auto bytes = [&](int G) { return sizeof(float) * (size_t)step_smem(dims, G, N, H, a0, d0, m0).total; };
+  // the split z tile where one graph fits beside it, else the fp32 tile
+  const bool split = sizeof(float) * (size_t)step_smem(dims, true, 1, N, H, a0, d0, m0).total <= (size_t)card.smem_max;
+  auto bytes = [&](int G) { return sizeof(float) * (size_t)step_smem(dims, split, G, N, H, a0, d0, m0).total; };
   // Graphs per block: the most that one block's shared memory holds (one block
   // an SM), and no more than fill the card once over.  Two blocks an SM leave
   // room for 8 graphs, whose slot ranges select about 3 rows each at a scan
@@ -296,12 +324,12 @@ extern "C" int mp_update_launch(const float* h, float* out, const float* a_flow,
   cudaStream_t s = (cudaStream_t)stream;
   switch (mma::n_tiles_per_warp(H1, H)) {
     case 1:
-      return (int)launch<1>(a, args, E, G, smem, s);
+      return (int)launch_plan<1>(a, args, E, G, smem, split, s);
     case 2:
-      return (int)launch<2>(a, args, E, G, smem, s);
+      return (int)launch_plan<2>(a, args, E, G, smem, split, s);
     case 4:
-      return (int)launch<4>(a, args, E, G, smem, s);
+      return (int)launch_plan<4>(a, args, E, G, smem, split, s);
     default:
-      return (int)launch<8>(a, args, E, G, smem, s);
+      return (int)launch_plan<8>(a, args, E, G, smem, split, s);
   }
 }

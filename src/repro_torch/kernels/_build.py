@@ -142,8 +142,10 @@ def _ptxas_summary(log: str) -> Dict[str, Dict[str, int]]:
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            t = re.search(r"\d+([a-z_]+_kernel)(?:ILi(\d+)E)?", m.group(1))  # demangle kernel / kernel<N>
-            name = m.group(1) if t is None else t.group(1) + (f"<{t.group(2)}>" if t.group(2) else "")
+            # demangle kernel / kernel<N> / kernel<N, M> (integer and bool template arguments)
+            t = re.search(r"\d+([a-z_]+_kernel)(?:I((?:L[ib]\d+E)+)E)?", m.group(1))
+            args = re.findall(r"L[ib](\d+)E", t.group(2) or "") if t else []
+            name = m.group(1) if t is None else t.group(1) + (f"<{','.join(args)}>" if args else "")
             entry = out.setdefault(name, {})
             continue
         if entry is None:

@@ -4,7 +4,9 @@ For tensors on the CPU it runs the plain version (``ref.py``); for tensors on
 a GPU it launches the CUDA kernel or raises.  It never falls back.  The
 member axis is explicit: ``x (E, B, N, F)`` with weights ``(E, T, ...)``, one
 launch for all E members; ``x`` may be expanded along the member axis
-(stride 0) when every member reads the same input.  On a GPU the launch runs
+(stride 0) when every member reads the same input.  Layer widths that are
+no multiple of 8 run zero-padded (``kernels/common.py:pad_widths``), up to
+128; wider layers raise.  On a GPU the launch runs
 inside an ``autograd.Function`` whose backward is the VJP of the plain
 version (``kernels/common.py``), as the JAX package's ``custom_vjp`` is.
 """
@@ -17,7 +19,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.banked_mlp.ref import banked_mlp_slotted_ref
-from repro_torch.kernels.common import check_untracked, oracle_vjp
+from repro_torch.kernels.common import check_untracked, oracle_vjp, pad_widths
 
 
 def _layers(w1, b1, w2, b2):
@@ -84,8 +86,11 @@ def banked_mlp_slotted(params, x: torch.Tensor, slot_ranges: Sequence[Tuple[int,
 
 def _launch(x, w1, b1, w2, b2, ranges) -> torch.Tensor:
     check_untracked("banked_mlp_slotted", x, w1, b1, w2, b2)
+    H2 = w2.shape[3]
+    if w1.shape[3] % 8 or H2 % 8:  # ragged widths: the kernel runs the bank zero-padded to multiples of 8
+        return _launch(x, *pad_widths(w1, b1, w2, b2), ranges)[..., :H2].contiguous()
     E, B, N, F = x.shape
-    T, H1, H2 = w1.shape[1], w1.shape[3], w2.shape[3]
+    T, H1 = w1.shape[1], w1.shape[3]
     y = torch.empty((E, B, N, H2), dtype=torch.float32, device=x.device)
     if y.numel() == 0:
         return y

@@ -7,18 +7,21 @@ one launch for all E members, and graph fields per graph (``a_flow
 (B, N, N)``, ``depth``/``mask`` ``(B, N)``) or shared by the batch
 (``(N, N)`` / ``(N,)``, read at batch stride 0).  The level table travels
 to the kernel by value (``_build.SweepLevels``), so one build serves every
-banding.  On a GPU the launch runs inside an ``autograd.Function``
-differentiable in ``h``, ``a_flow`` and the weights, whose backward is the
-VJP of the plain sweep (``kernels/common.py``).
+banding.  Widths that are no multiple of 8 run zero-padded
+(``kernels/common.py:pad_widths``), up to 128; wider ones raise.  On a GPU
+the launch runs inside an ``autograd.Function`` differentiable in ``h``,
+``a_flow`` and the weights, whose backward is the VJP of the plain sweep
+(``kernels/common.py``).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.banked_mlp.ops import _layers
-from repro_torch.kernels.common import check_untracked, oracle_vjp
+from repro_torch.kernels.common import check_untracked, oracle_vjp, pad_widths, round8
 from repro_torch.kernels.mp_sweep.ref import mp_sweep_ref
 from repro_torch.kernels.mp_update.ops import check_level, check_step_operands
 
@@ -51,6 +54,11 @@ def mp_sweep(params, h: torch.Tensor, a_flow: torch.Tensor, depth: torch.Tensor,
 
 def _launch(h, a_flow, w1, b1, w2, b2, depth, mask, levels, strides) -> torch.Tensor:
     check_untracked("mp_sweep", h, a_flow, w1, b1, w2, b2)
+    H = h.shape[3]
+    if H % 8 or w1.shape[3] % 8:  # ragged widths: the state and the bank zero-padded to multiples of 8
+        hp = F.pad(h, (0, round8(H) - H))
+        out = _launch(hp, a_flow, *pad_widths(w1, b1, w2, b2, state=H), depth, mask, levels, strides)
+        return out[..., :H].contiguous()
     E, B, N, H = h.shape
     T, H1 = w1.shape[1], w1.shape[3]
     a_bs, d_bs, m_bs = strides

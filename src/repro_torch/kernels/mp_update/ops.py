@@ -5,11 +5,13 @@ a GPU it launches the CUDA kernel or raises.  It never falls back.  ``h`` has
 an explicit member axis, ``(E, B, N, H)``, with weights ``(E, T, ...)``: one
 launch for all E members.  The graph fields are per graph, ``a_flow
 (B, N, N)``, ``depth``/``mask`` ``(B, N)``, or shared by the whole batch,
-``(N, N)`` / ``(N,)``, which the kernel reads at batch stride 0.  On a GPU
-the launch runs inside an ``autograd.Function`` differentiable in ``h``,
-``a_flow`` and the weights, whose backward is the VJP of the plain version
-(``kernels/common.py``); a shared ``a_flow``'s gradient comes back summed
-over the batch, as JAX's transpose of the broadcast gives it.
+``(N, N)`` / ``(N,)``, which the kernel reads at batch stride 0.  Widths
+that are no multiple of 8 run zero-padded (``kernels/common.py:pad_widths``),
+up to 128; wider ones raise.  On a GPU the launch runs inside an
+``autograd.Function`` differentiable in ``h``, ``a_flow`` and the weights,
+whose backward is the VJP of the plain version (``kernels/common.py``); a
+shared ``a_flow``'s gradient comes back summed over the batch, as JAX's
+transpose of the broadcast gives it.
 """
 
 from __future__ import annotations
@@ -17,10 +19,11 @@ from __future__ import annotations
 from typing import Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.banked_mlp.ops import _layers
-from repro_torch.kernels.common import check_untracked, oracle_vjp
+from repro_torch.kernels.common import check_untracked, oracle_vjp, pad_widths, round8
 from repro_torch.kernels.mp_update.ref import mp_update_ref
 
 
@@ -137,6 +140,11 @@ def mp_update(
 
 def _launch(h, a_flow, w1, b1, w2, b2, depth, mask, d, ranges, bounds, strides) -> torch.Tensor:
     check_untracked("mp_update", h, a_flow, w1, b1, w2, b2)
+    H = h.shape[3]
+    if H % 8 or w1.shape[3] % 8:  # ragged widths: the state and the bank zero-padded to multiples of 8
+        hp = F.pad(h, (0, round8(H) - H))
+        out = _launch(hp, a_flow, *pad_widths(w1, b1, w2, b2, state=H), depth, mask, d, ranges, bounds, strides)
+        return out[..., :H].contiguous()
     E, B, N, H = h.shape
     T, H1 = w1.shape[1], w1.shape[3]
     (s, e, p), (a_bs, d_bs, m_bs) = bounds, strides

@@ -108,9 +108,24 @@ def test_banked_mlp_kernel_matches_plain(cuda, F, T, N, B, shared, H1, H2, seed)
 
 @pytest.mark.gpu
 def test_banked_mlp_kernel_refuses_other_widths(cuda):
+    """The JAX kernels' envelope, layer widths 1 to 128: ragged widths (the
+    wrapper runs the bank zero-padded to multiples of 8) and F = 256 at
+    H1 = H2 = 128 (the 16-row tiles) within 1e-5 of the plain version, two
+    launches bitwise equal; a layer wider than 128 still raises."""
     gen = torch.Generator().manual_seed(0)
+    for F, H1, H2 in ((8, 12, 16), (8, 16, 20), (8, 128, 128), (39, 5, 3), (256, 128, 128), (256, 100, 128)):
+        x = torch.randn((2, 33, 12, F), generator=gen).to(cuda)
+        p = _bank(gen, 2, 5, F, H1, cuda, H2, glorot=True)
+        before = bank_ops.banked_mlp_slotted.launches
+        got = bank_ops.banked_mlp_slotted(p, x, SLOT_RANGES)
+        again = bank_ops.banked_mlp_slotted(p, x, SLOT_RANGES)
+        torch.cuda.synchronize()
+        assert bank_ops.banked_mlp_slotted.launches == before + 2
+        assert got.shape == (2, 33, 12, H2) and got.is_contiguous()
+        torch.testing.assert_close(got, banked_mlp_slotted_ref(p, x, SLOT_RANGES), **TOL)
+        assert torch.equal(got, again)
     x = torch.randn((2, 3, 12, 8), generator=gen).to(cuda)
-    for H1, H2 in ((12, 16), (16, 136)):
+    for H1, H2 in ((16, 136), (129, 16)):
         with pytest.raises(RuntimeError, match="cudaError_t 1"):
             bank_ops.banked_mlp_slotted(_bank(gen, 2, 5, 8, H1, cuda, H2), x, SLOT_RANGES)
 
@@ -150,6 +165,44 @@ def test_mp_update_kernel_matches_plain(cuda, shared, span, B, H, H1, seed):
         got = mp_ops.mp_update(p, h, a, depth, mask, d, ranges, **kw)
         again = mp_ops.mp_update(p, h, a, depth, mask, d, ranges, **kw)
         torch.cuda.synchronize()
+        torch.testing.assert_close(got, mp_update_ref(p, h, a, depth, mask, d, ranges, **kw), **TOL)
+        assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "shared,span,H,H1",
+    [
+        (False, None, 12, 20),  # ragged widths: the state and the bank zero-padded to 16 and 24
+        (True, (3, 7), 100, 3),  # ragged widths, shared fields with a span
+        (False, None, 128, 128),  # H = H1 = 128: the 16-row fp32 z tile
+        (False, (0, 12), 3, 128),
+    ],
+)
+def test_mp_update_kernel_widths(cuda, shared, span, H, H1):
+    """The JAX kernels' envelope, widths 1 to 128: ragged widths run
+    zero-padded to multiples of 8, and at H = H1 = 128 one type's weights
+    (197.6 KB) leave room for a 16-row fp32 z tile only.  Weights at the
+    model's init scale (glorot), as ``test_mp_sweep_kernel_widths`` holds the
+    sweep: at 0.2 x randn and K = 256 the plain fp32 step is itself about
+    TOL from an exact evaluation.  Within 1e-5 of the plain version, two
+    launches bitwise equal."""
+    E, B, N = 15, 70, 12
+    gen = torch.Generator().manual_seed(H * 131 + H1)
+    p = _bank(gen, E, 5, 2 * H, H1, cuda, H, glorot=True)
+    h = torch.randn((E, B, N, H), generator=gen).to(cuda)
+    lead = () if shared else (B,)
+    a, depth, mask = _random_graphs(gen, B, N, cuda, lead=lead)
+    if span is not None:
+        a = a.clone()
+        a[..., span[0]:, span[0] : span[1]] = 0.0
+    ranges = ((1, 3, 7),) if span == (3, 7) else SLOT_RANGES
+    kw = {} if span is None else dict(row_span=span, parent_rows=span[0] if span[0] > 0 else N)
+    for d in (1, 2, 3):
+        got = mp_ops.mp_update(p, h, a, depth, mask, d, ranges, **kw)
+        again = mp_ops.mp_update(p, h, a, depth, mask, d, ranges, **kw)
+        torch.cuda.synchronize()
+        assert got.shape == h.shape and got.is_contiguous()
         torch.testing.assert_close(got, mp_update_ref(p, h, a, depth, mask, d, ranges, **kw), **TOL)
         assert torch.equal(got, again)
 
@@ -303,11 +356,20 @@ def test_mp_sweep_kernel_widths(cuda, H, H1):
 
 @pytest.mark.gpu
 def test_mp_sweep_kernel_refuses_other_widths(cuda):
-    """Widths that are no multiple of 8 or above 128, and H = H1 = 128, whose
-    weights (197.6 KB) and z tile (66.6 KB) exceed a block's shared memory."""
+    """The JAX kernels' envelope, widths 1 to 128: ragged widths (the state
+    and the bank zero-padded to multiples of 8) and H = H1 = 128, whose
+    weights (197.6 KB) and split z tile (66.6 KB) pass a block's shared
+    memory (the 16-row fp32 z tile), within 1e-5 of the plain version; a
+    width above 128 still raises."""
     gen = torch.Generator().manual_seed(0)
+    a, depth, mask = _random_graphs(gen, 70, 12, cuda)
+    for H, H1 in ((12, 16), (16, 20), (128, 128), (100, 7), (3, 128)):
+        h = torch.randn((3, 70, 12, H), generator=gen).to(cuda)
+        got = _sweep_matches_plain(_bank(gen, 3, 5, 2 * H, H1, cuda, H, glorot=True), h, a, depth, mask,
+                                   _RANDOM_LEVELS)
+        assert got.shape == h.shape and got.is_contiguous()
     a, depth, mask = _random_graphs(gen, 3, 12, cuda)
-    for H, H1 in ((12, 16), (16, 20), (16, 136), (128, 128)):
+    for H, H1 in ((16, 136), (136, 16)):
         h = torch.randn((2, 3, 12, H), generator=gen).to(cuda)
         with pytest.raises(RuntimeError, match="cudaError_t 1"):
             sweep_ops.mp_sweep(_bank(gen, 2, 5, 2 * H, H1, cuda, H), h, a, depth, mask, _RANDOM_LEVELS)
@@ -597,6 +659,68 @@ def test_cost_model_gradient_through_kernels_matches_plain(cuda, metric):
     for (path, a), (_, b) in zip(nn.tree_leaves_with_paths(grads), nn.tree_leaves_with_paths(want)):
         assert float(a.abs().max()) > 0, path
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5 * float(b.abs().max()), msg=str(path))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hidden", [12, 100, 128])
+def test_cost_model_widths_through_kernels_match_plain(cuda, hidden):
+    """A cost model at a hidden width that is no multiple of 8, or at the
+    envelope's 128, under ``use_pallas=True``: the forward of 3 members over
+    one exact-banded batch of 512 graphs (4 ``banked_mlp`` and 1 ``mp_sweep``
+    launches) within 1e-5 of the plain path, and every gradient leaf within
+    the bound of ``test_cost_model_gradient_through_kernels_matches_plain``."""
+    traces = WorkloadGenerator(seed=8).corpus(700)
+    ds, buckets = batching.bucket_dataset(batching.dataset_from_traces(traces, "latency_p"), exact=True)
+    g, y, band = next(iter(batching.bucketed_batches(ds, buckets, 512, rng=np.random.default_rng(0), device=cuda)))
+    cfg = CostModelConfig(metric="latency_p", gnn=GNNConfig(hidden=hidden, use_pallas=True))
+    plain = CostModelConfig(metric="latency_p", gnn=GNNConfig(hidden=hidden, use_pallas=False))
+    params = nn.to_device(init_cost_model(torch.Generator().manual_seed(hidden), cfg), cuda)
+    before = (bank_ops.banked_mlp_slotted.launches, sweep_ops.mp_sweep.launches)
+    with torch.no_grad():
+        got = forward_ensemble(params, g, cfg, band)
+    assert (bank_ops.banked_mlp_slotted.launches - before[0], sweep_ops.mp_sweep.launches - before[1]) == (4, 1)
+    with torch.no_grad():
+        torch.testing.assert_close(got, forward_ensemble(params, g, plain, band), **TOL)
+    loss, grads = loop.loss_and_grads(params, g, y, cfg, band)
+    want_loss, want = loop.loss_and_grads(params, g, y, plain, band)
+    torch.testing.assert_close(loss, want_loss, **TOL)
+    for (path, a), (_, b) in zip(nn.tree_leaves_with_paths(grads), nn.tree_leaves_with_paths(want)):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5 * float(b.abs().max()), msg=str(path))
+
+
+@pytest.mark.gpu
+def test_extrap_run_on_card_matches_the_cpu(cuda):
+    """The extrap run that ended at 1.98x its init loss on the card (ROADMAP
+    queue 3): stronger-bandwidth ``success`` on the corpus of seed
+    ``CORPUS_SEED + 424`` at ``chip_smoke.py``'s cut (400 traces, one epoch,
+    batch 512, exact banding), trained through the kernels, against the same
+    run on the CPU plain path from the same init and batch order.  Both end
+    at about 1.98x their init loss (the premise, not the card, fails:
+    ``test_torch_stages.py::test_one_extrap_epoch_does_not_lower_every_run``);
+    their validation losses agree within 1e-3 relative (TRAJ_REL)."""
+    from repro_torch.core.graph import batch_banding
+    from repro_torch.core.model import ensemble_loss
+    from repro_torch.launch import train as launch_train
+
+    traces = WorkloadGenerator(launch_train.extrap_generator("stronger", "bandwidth"),
+                               seed=launch_train.CORPUS_SEED + 424).corpus(400)
+    tr, va, _ = batching.split_dataset(batching.dataset_from_traces(traces, "success"), seed=launch_train.SPLIT_SEED)
+    cfg = CostModelConfig(metric="success", gnn=GNNConfig(use_pallas=True), n_ensemble=1)
+    tcfg = loop.TrainConfig(epochs=1, batch_size=512, lr=1.5e-3, seed=0, exact_banding=True)
+    before = (bank_ops.banked_mlp_slotted.launches, sweep_ops.mp_sweep.launches)
+    card = loop.train_cost_model(tr, va, cfg, tcfg, device=cuda)
+    assert bank_ops.banked_mlp_slotted.launches - before[0] == 4 * (card.steps + 1)
+    assert sweep_ops.mp_sweep.launches - before[1] == card.steps + 1
+    cpu = loop.train_cost_model(tr, va, cfg, tcfg, device="cpu")
+    assert card.steps == cpu.steps == 31
+    assert abs(card.best_val - cpu.best_val) <= 1e-3 * abs(cpu.best_val), (card.best_val, cpu.best_val)
+    p0 = init_cost_model(torch.Generator().manual_seed(0), cfg)
+    g, y = batching.batch_to_device(va.graphs, va.labels, "cpu")
+    with torch.no_grad():
+        at_init = float(ensemble_loss(p0, g, y, cfg, batch_banding(va.graphs)))
+    print(f"extrap offset 424: init {at_init}, card {card.best_val} ({card.best_val / at_init}x), "
+          f"cpu {cpu.best_val} ({cpu.best_val / at_init}x)")
+    assert card.best_val > 1.5 * at_init and cpu.best_val > 1.5 * at_init
 
 
 def _traditional_batch(metric, device, n=700, seed=8):

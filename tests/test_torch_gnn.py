@@ -353,3 +353,23 @@ def test_seg_gather_calls_per_merged_forward(n_ensemble, monkeypatch):
     levels = len(band.levels)
     # stage 0 (op_enc, hw_enc), stages 1-2 (hw_upd, op_upd), one op_upd per level
     assert counts == {"banked_mlp": 4 + levels, "mp_update": 0, "mp_sweep": 0, "gather_sum": 1 + levels, "segment_sum": 1}
+
+
+@pytest.mark.parametrize("hidden", [12, 100, 128])
+def test_apply_gnn_stacked_widths_match_jax(hidden, monkeypatch):
+    """Hidden widths across the JAX kernels' envelope (F <= 2H, H <= 128): a
+    width that is no multiple of 8 and the largest one.  The port's banded
+    forward of 3 members with ``use_pallas=True`` (on the CPU the wrappers run
+    their plain versions; on a card the kernels run zero-padded ragged
+    widths, ``test_torch_cuda.py::test_cost_model_widths_through_kernels_match_plain``)
+    against JAX's ``use_pallas=True`` forward through the Pallas interpreter."""
+    monkeypatch.setenv("REPRO_PALLAS_INTERPRET", "1")
+    jcfg, cfg = _cfgs(True, hidden)
+    g = _banded_corpus(seed=11)
+    band = jbucketing.exact_banding(g)
+    p = _jax_params(7, hidden=hidden, members=3)
+    fwd = jax.jit(jgnn.apply_gnn_stacked, static_argnums=(2, 3))
+    want = np.asarray(fwd(p, jax.tree_util.tree_map(jnp.asarray, g), jcfg, band))
+    got = gnn.apply_gnn_stacked(nn.params_from_numpy(p), _as_torch(g), cfg, graph.exact_banding(graph.JointGraph(*g)))
+    assert got.shape == want.shape == (3, g.op_x.shape[0])
+    np.testing.assert_allclose(got.numpy(), want, **TOL)

@@ -382,3 +382,49 @@ def test_tf32_split_holds_the_kernel_tolerance(case, split):
     assert err > 0.0
     within = bool(torch.allclose(got, want, **TOL))
     assert within is split, f"max abs err {err} against TOL {TOL}"
+
+
+@pytest.mark.parametrize("H,H1", [(12, 16), (16, 20), (5, 3), (100, 128), (128, 1)])
+@pytest.mark.parametrize("kernel", ["banked_mlp", "mp_update", "mp_sweep"])
+def test_zero_padded_widths_compute_the_same_function(kernel, H, H1):
+    """What the CUDA wrappers launch at a width that is no multiple of 8: the
+    bank zero-padded to multiples of 8 (``common.pad_widths``; for the stage-3
+    kernels also the state, whose two halves of ``[h, msg]`` move apart),
+    trimmed back to the real columns, is the plain version of the unpadded
+    bank, and its padded columns stay zero.  Checked here on the plain
+    versions; ``test_torch_cuda.py`` holds the kernels at these widths."""
+    from repro_torch.kernels.common import pad_widths, round8
+
+    gen = torch.Generator().manual_seed(H * 131 + H1)
+    E, B, N, T = 2, 9, 12, 5
+
+    def bank(F, H1, H2):
+        return [0.3 * torch.randn(s, generator=gen) for s in ((E, T, F, H1), (E, T, H1), (E, T, H1, H2), (E, T, H2))]
+
+    def layers(w1, b1, w2, b2):
+        return {"layers": [{"w": w1, "b": b1}, {"w": w2, "b": b2}]}
+
+    if kernel == "banked_mlp":
+        x = torch.randn((E, B, N, 7), generator=gen)
+        w = bank(7, H, H1)
+        want = banked_mlp_slotted_ref(layers(*w), x, SLOT_RANGES)
+        got = banked_mlp_slotted_ref(layers(*pad_widths(*w)), x, SLOT_RANGES)
+        width = H1
+    else:
+        w = bank(2 * H, H1, H)
+        h = torch.randn((E, B, N, H), generator=gen)
+        a = (torch.rand((B, N, N), generator=gen) > 0.6).float()
+        depth = torch.randint(1, 4, (B, N), generator=gen, dtype=torch.int32)
+        mask = (torch.rand((B, N), generator=gen) > 0.2).float()
+        hp = torch.nn.functional.pad(h, (0, round8(H) - H))
+        if kernel == "mp_update":
+            want = mp_update_ref(layers(*w), h, a, depth, mask, 2, SLOT_RANGES)
+            got = mp_update_ref(layers(*pad_widths(*w, state=H)), hp, a, depth, mask, 2, SLOT_RANGES)
+        else:
+            levels = ((1, (0, N), SLOT_RANGES, N), (2, (3, 11), ((1, 3, 7), (3, 7, 9), (2, 9, 11)), 11))
+            want = mp_sweep_ref(layers(*w), h, a, depth, mask, levels)
+            got = mp_sweep_ref(layers(*pad_widths(*w, state=H)), hp, a, depth, mask, levels)
+        width = H
+    assert got.shape[-1] == round8(width)
+    torch.testing.assert_close(got[..., :width], want, rtol=1e-6, atol=1e-6)
+    assert torch.equal(got[..., width:], torch.zeros_like(got[..., width:]))

@@ -164,3 +164,30 @@ def test_launch_train_stage_matches_jax(stage, tmp_path, monkeypatch):
     n_before = len(ours_calls)
     getattr(launch_train, f"stage_{stage}")(1, device="cpu")  # resumable: everything is stored
     assert len(ours_calls) == n_before and _stored(ours_root)[0].keys() == ours.keys()
+
+
+def test_one_extrap_epoch_does_not_lower_every_run():
+    """Why ``chip_smoke.py`` holds each extrap run against the same run on
+    the CPU instead of against its validation loss at init: at its cut (400
+    traces, one epoch, batch 512, exact banding) the plain path itself ends
+    some runs above their loss at init.  Corpus seed ``CORPUS_SEED + 424``
+    (``hash`` picks one of 1000 offsets per process) gives the stronger-
+    bandwidth ``success`` run the card ended at 1.98x its init loss; the CPU
+    plain path ends it there too (``test_torch_cuda.py::
+    test_extrap_run_on_card_matches_the_cpu`` holds the card to it)."""
+    from repro_torch.core.graph import batch_banding
+    from repro_torch.dsps import WorkloadGenerator
+    from repro_torch.training import batching
+
+    traces = WorkloadGenerator(launch_train.extrap_generator("stronger", "bandwidth"),
+                               seed=launch_train.CORPUS_SEED + 424).corpus(400)
+    tr, va, _ = batching.split_dataset(batching.dataset_from_traces(traces, "success"), seed=launch_train.SPLIT_SEED)
+    cfg = model.CostModelConfig(metric="success", gnn=gnn.GNNConfig(use_pallas=True), n_ensemble=1)
+    p0 = model.init_cost_model(torch.Generator().manual_seed(0), cfg)
+    g, y = batching.batch_to_device(va.graphs, va.labels, "cpu")
+    with torch.no_grad():
+        at_init = float(model.ensemble_loss(p0, g, y, cfg, batch_banding(va.graphs)))
+    res = loop.train_cost_model(tr, va, cfg, loop.TrainConfig(epochs=1, batch_size=512, lr=1.5e-3, seed=0,
+                                                              exact_banding=True), device="cpu")
+    assert res.steps == 31 and len(res.history) == 1
+    assert res.best_val > 1.5 * at_init, (res.best_val, at_init)
