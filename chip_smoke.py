@@ -19,8 +19,8 @@ Each phase prints one JSON line:
            use_pallas=True) answering estimate / score / optimize requests and
            the cross-query estimate_many / score_many, each answer held against
            the card's per-request answers and the same estimator on the CPU;
-           every path runs with the launch counters set to 0 just before it and
-           read just after, and fails if one of its kernels did not launch
+           every path reads the launch counters (repro_torch.obs) just before it
+           and just after, and fails if one of its kernels did not launch
   train    launch/train.py's main stage at full width (22,000 traces, 5 metrics x 3
            members, hidden 64, batch 512, exact banding, use_pallas=True), cut to 2
            epochs a metric: gradients through the kernels against the plain path
@@ -1137,6 +1137,7 @@ def lm_train_phase(lm_cfg, weights, counted, cuda_ms, timed, card, costream):
     import numpy as np
     import torch
 
+    from repro_torch import obs
     from repro_torch.kernels.common import oracle_vjp
     from repro_torch.kernels.rglru import ops as scan_ops
     from repro_torch.kernels.rglru.ref import linear_scan_ref
@@ -1182,7 +1183,8 @@ def lm_train_phase(lm_cfg, weights, counted, cuda_ms, timed, card, costream):
     parts, launches = [], []
     for _ in range(SIZES["lm_train_steps"]):
         state, loss, norm, ms, c = split_train_step(cfg, tcfg, state, batch,
-                                                    lambda: (scan_ops.linear_scan.launches, reversed_calls[0]))
+                                                    lambda: (obs.counters().get("linear_scan.launches", 0),
+                                                             reversed_calls[0]))
         parts.append(ms)
         launches.append({"forward": c[1][0] - c[0][0], "backward": c[2][0] - c[1][0], "reversed": c[3][1] - c[0][1]})
         losses.append(loss)
@@ -2110,7 +2112,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
 
-    from repro_torch import nn
+    from repro_torch import nn, obs
     from repro_torch.core import gnn
     from repro_torch.core.graph import (
         SLOT_RANGES,
@@ -2478,21 +2480,24 @@ def main() -> int:
     # -- 3. serve: the port's paths through their entry points -----------------
     est = CostEstimator(models, device=DEVICE)
     cpu = CostEstimator(models, device="cpu")
-    counters = {"banked_mlp": bank_ops.banked_mlp_slotted, "mp_update": mp_ops.mp_update,
-                "mp_sweep": sweep_ops.mp_sweep, "gather_sum": seg_ops.gather_sum,
-                "segment_sum": seg_ops.segment_sum, "linear_scan": scan_ops.linear_scan}
-    path_launches = {}  # path -> launches per kernel, counted from 0 over that path alone
+    counters = {"banked_mlp": "banked_mlp_slotted.launches", "mp_update": "mp_update.launches",
+                "mp_sweep": "mp_sweep.launches", "gather_sum": "gather_sum.launches",
+                "segment_sum": "segment_sum.launches", "linear_scan": "linear_scan.launches"}
+    path_launches = {}  # path -> launches per kernel, counted over that path alone
+
+    def launches():
+        now = obs.counters()
+        return {n: now.get(key, 0) for n, key in counters.items()}
 
     def counted(path, fn, need, never=()):
-        """Run ``fn`` with every launch counter at 0; fail unless each kernel
-        of ``need`` launched and none of ``never`` did."""
-        for k in counters.values():
-            k.launches = 0
+        """Run ``fn``; fail unless each kernel of ``need`` launched during it
+        and none of ``never`` did."""
+        before = launches()
         out = fn()
         torch.cuda.synchronize()
-        got = {n: k.launches for n, k in counters.items()}
-        for n, k in counters.items():
-            path_launches.setdefault(path, dict.fromkeys(counters, 0))[n] += k.launches
+        got = {n: c - before[n] for n, c in launches().items()}
+        for n, c in got.items():
+            path_launches.setdefault(path, dict.fromkeys(counters, 0))[n] += c
         if any(got[n] == 0 for n in need) or any(got[n] for n in never):
             raise AssertionError(f"{path}: launches {got}; need {need}, never {never}")
         return out, got

@@ -36,6 +36,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 
+from repro_torch import obs
+
 
 def bucket_size(n: int) -> int:
     """Smallest power of two >= n: the jit shape buckets the scorer pads to."""
@@ -237,21 +239,30 @@ def _banding_cache_capacity() -> int:
     return active_policy().banding_cache_size
 
 
-def _banding_cached(g, flavor: str, compute) -> BatchBanding:
+def _banding_lookup(g, flavor: str, compute) -> Tuple[BatchBanding, bool]:
+    """(banding, whether the cache held it); counts ``cache.banding.{hit,miss}``."""
     key = (flavor, batch_signature(g))
     hit = _BANDING_CACHE.get(key)
-    if hit is None:
-        if len(_BANDING_CACHE) >= _banding_cache_capacity():
-            _BANDING_CACHE.clear()  # tiny entries; full reset beats LRU churn
-        hit = _BANDING_CACHE[key] = compute(g)
-    return hit
+    if hit is not None:
+        obs.count("cache.banding.hit")
+        return hit, True
+    obs.count("cache.banding.miss")
+    if len(_BANDING_CACHE) >= _banding_cache_capacity():
+        _BANDING_CACHE.clear()  # tiny entries; full reset beats LRU churn
+    banding = _BANDING_CACHE[key] = compute(g)
+    return banding, False
+
+
+def exact_banding_lookup(g) -> Tuple[BatchBanding, bool]:
+    """``exact_banding`` memoized on ``batch_signature(g)``, and whether it was a hit."""
+    return _banding_lookup(g, "exact", exact_banding)
 
 
 def exact_banding_cached(g) -> BatchBanding:
     """``exact_banding`` memoized on ``batch_signature(g)``."""
-    return _banding_cached(g, "exact", exact_banding)
+    return exact_banding_lookup(g)[0]
 
 
 def batch_banding_cached(g) -> BatchBanding:
     """``batch_banding`` memoized on ``batch_signature(g)``."""
-    return _banding_cached(g, "conservative", batch_banding)
+    return _banding_lookup(g, "conservative", batch_banding)[0]

@@ -319,6 +319,7 @@ from repro_torch.core.bucketing import (  # noqa: E402,F401
     bucket_size,
     exact_banding,
     exact_banding_cached,
+    exact_banding_lookup,
     pad_batch,
 )
 

@@ -17,6 +17,7 @@ from typing import Sequence, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import _build
 from repro_torch.kernels.banked_mlp.ref import banked_mlp_slotted_ref
 from repro_torch.kernels.common import check_untracked, oracle_vjp, pad_widths
@@ -101,7 +102,7 @@ def _launch(x, w1, b1, w2, b2, ranges) -> torch.Tensor:
         x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check("banked_mlp", err)
-    banked_mlp_slotted.launches += 1
+    obs.count("banked_mlp_slotted.launches")
     return y
 
 
@@ -120,6 +121,3 @@ class _BankedMLP(torch.autograd.Function):
             return banked_mlp_slotted_ref(_layers(w1, b1, w2, b2), x, ctx.ranges)
 
         return (*oracle_vjp(ctx, plain, g, *ctx.saved_tensors), None)
-
-
-banked_mlp_slotted.launches = 0  # kernel launches (CUDA tensors only)

@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.kernels import _build
 from repro_torch.kernels.banked_mlp.ops import _layers
 from repro_torch.kernels.common import check_untracked, oracle_vjp, pad_widths, round8
@@ -73,7 +74,7 @@ def _launch(h, a_flow, w1, b1, w2, b2, depth, mask, levels, strides) -> torch.Te
         E, B, N, H, H1, T, table, h.device.index, torch.cuda.current_stream(h.device).cuda_stream,
     )
     _build.check("mp_sweep", err)
-    mp_sweep.launches += 1
+    obs.count("mp_sweep.launches")
     return out
 
 
@@ -96,6 +97,3 @@ class _MPSweep(torch.autograd.Function):
             return mp_sweep_ref(_layers(w1, b1, w2, b2), h, a_flow, depth, mask, ctx.levels)
 
         return (*oracle_vjp(ctx, plain, g, h, a_flow, w1, b1, w2, b2), None, None, None)
-
-
-mp_sweep.launches = 0  # kernel launches (CUDA tensors only)

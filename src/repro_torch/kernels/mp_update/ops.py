@@ -21,6 +21,7 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.kernels import _build
 from repro_torch.kernels.banked_mlp.ops import _layers
 from repro_torch.kernels.common import check_untracked, oracle_vjp, pad_widths, round8
@@ -159,7 +160,7 @@ def _launch(h, a_flow, w1, b1, w2, b2, depth, mask, d, ranges, bounds, strides) 
         h.device.index, torch.cuda.current_stream(h.device).cuda_stream,
     )
     _build.check("mp_update", err)
-    mp_update.launches += 1
+    obs.count("mp_update.launches")
     return out
 
 
@@ -183,6 +184,3 @@ class _MPUpdate(torch.autograd.Function):
             return mp_update_ref(_layers(w1, b1, w2, b2), h, a_flow, depth, mask, d, ranges, span, p)
 
         return (*oracle_vjp(ctx, plain, g, h, a_flow, w1, b1, w2, b2), None, None, None)
-
-
-mp_update.launches = 0  # kernel launches (CUDA tensors only)

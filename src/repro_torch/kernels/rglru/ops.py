@@ -25,6 +25,7 @@ from typing import Callable, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import check_untracked
 from repro_torch.kernels.rglru.ref import linear_scan_ref
@@ -95,11 +96,10 @@ def _launch(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> torch.Tensor:
         B, T, D, a.device.index, torch.cuda.current_stream(a.device).cuda_stream,
     )
     _build.check("linear_scan", err)
-    linear_scan.launches += 1
+    obs.count("linear_scan.launches")
     return out
 
 
-linear_scan.launches = 0  # kernel launches (CUDA tensors only), forward and backward
 
 
 def linear_scan_bwd(

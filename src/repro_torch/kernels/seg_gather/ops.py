@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import check_untracked, oracle_vjp
 from repro_torch.kernels.seg_gather.ref import gather_sum_ref, segment_sum_ref
@@ -78,7 +79,7 @@ def _launch_gather(h, w, idx) -> torch.Tensor:
         out.data_ptr(), E, B, N, R, P, H, h.device.index, torch.cuda.current_stream(h.device).cuda_stream,
     )
     _build.check("gather_sum", err)
-    gather_sum.launches += 1
+    obs.count("gather_sum.launches")
     return out
 
 
@@ -134,7 +135,7 @@ def _launch_segment(x, seg, n_seg: int) -> torch.Tensor:
         x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check("segment_sum", err)
-    segment_sum.launches += 1
+    obs.count("segment_sum.launches")
     return out
 
 
@@ -149,7 +150,3 @@ class _SegmentSum(torch.autograd.Function):
     def backward(ctx, g):
         x, seg = ctx.saved_tensors
         return (*oracle_vjp(ctx, lambda x: segment_sum_ref(x, seg, ctx.n_seg), g, x), None, None)
-
-
-gather_sum.launches = 0  # kernel launches (CUDA tensors only)
-segment_sum.launches = 0

@@ -20,6 +20,8 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
+
 Params = Dict[str, object]
 
 
@@ -269,12 +271,25 @@ def arrays_to_device(arrays: Sequence[np.ndarray], device) -> list:
     the host never waits for the device's queued work.  The caching host
     allocator records the copy on the stream and does not hand the buffer
     out again until the copy has run, so the staging buffer may be dropped
-    here."""
+    here.  Traced as ``h2d.stage`` (``repro_torch.obs``): its bytes and, on a
+    GPU, the page-locked blocks the caching host allocator had to create for
+    it (``pinned_allocs``, ``pinned_alloc_us``)."""
     device = torch.device(device)
-    if device.type == "cpu":
-        return [torch.as_tensor(np.ascontiguousarray(a)) for a in arrays]
-    buf, layout = pack_host(arrays, pin=True)
-    return unpack(buf.to(device, non_blocking=True), layout)
+    with obs.span("h2d.stage") as sp:
+        if device.type == "cpu":
+            out = [torch.as_tensor(np.ascontiguousarray(a)) for a in arrays]
+        else:
+            before = torch.cuda.host_memory_stats_as_nested_dict() if sp.on else None
+            buf, layout = pack_host(arrays, pin=True)
+            out = unpack(buf.to(device, non_blocking=True), layout)
+            if sp.on:
+                after = torch.cuda.host_memory_stats_as_nested_dict()
+                sp.set(pinned_allocs=after["num_host_alloc"] - before.get("num_host_alloc", 0),
+                       pinned_alloc_us=after["host_alloc_time"]["total"]
+                       - before.get("host_alloc_time", {}).get("total", 0))
+        if sp.on:
+            sp.set(bytes=sum(int(t.nbytes) for t in out))
+        return out
 
 
 def index_tensor(values: Sequence[int], device) -> torch.Tensor:

@@ -27,6 +27,14 @@ the device through one page-locked buffer and a ``non_blocking`` copy,
 the device still runs the previous one.  ``add_hook`` is the fault-injection
 and observation seam (``serve/chaos.py``): ``before`` at dispatch, ``after``
 at finalize, ahead of the finiteness guard.
+
+Every facade call opens spans (``repro_torch.obs``) while ``torch.profiler``
+records: a root ``estimator.<entry>`` over the dispatch half, whose call id
+the deferred ``estimator.finalize`` carries, and inside them the host work
+(``host.*``), the copies to the device (``h2d.stage``), the forward's launch
+(``gnn.forward``, with its stage-3 row counts), the readback (``d2h.wait``)
+and the vote (``host.vote``).  The skeleton, merged-group and banding caches
+count their hits and misses (``cache.*``).
 """
 
 from __future__ import annotations
@@ -39,7 +47,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch import nn
+from repro_torch import nn, obs
 from repro_torch.core.gnn import (
     apply_gnn_merged,
     apply_gnn_placed_members,
@@ -56,6 +64,7 @@ from repro_torch.core.graph import (
     build_graph_batch,
     build_graph_skeleton,
     exact_banding_cached,
+    exact_banding_lookup,
     merge_graph_batches,
     pad_batch,
     query_static,
@@ -125,7 +134,21 @@ def _maybe_defer(finalize, deferred: bool):
 
 
 def _host(raw: torch.Tensor) -> np.ndarray:
-    return raw.detach().cpu().numpy()
+    with obs.span("d2h.wait") as sp:
+        if sp.on:
+            sp.set(bytes=raw.numel() * raw.element_size())
+        return raw.detach().cpu().numpy()
+
+
+def _real3(op_mask, op_depth) -> int:
+    """Real operator rows at depth 1 or more of a host batch, each once: the rows
+    stage 3 has to update."""
+    return int(np.count_nonzero((np.asarray(op_mask) > 0) & (np.asarray(op_depth) >= 1)))
+
+
+def _level_rows(banding: BatchBanding) -> int:
+    """Rows one graph's stage-3 levels cover under ``banding``: the sum of the spans."""
+    return sum(e - s for _, (s, e), _ in banding.levels)
 
 
 def graphs_to_device(g: JointGraph, device) -> JointGraph:
@@ -261,17 +284,22 @@ class CostEstimator:
                 before(kind, n)
 
     def _finish(self, kind: str, finalize, deferred: bool):
-        """Wrap a finalize thunk with after-hooks + the finiteness guard."""
+        """Wrap a finalize thunk with after-hooks + the finiteness guard; its
+        span joins the dispatch half's call id, and the hooks and the guard,
+        host work on the answers, count as ``host.vote``."""
+        call = obs.current_call()
 
         def run():
-            out = finalize()
-            for h in self._hooks:
-                after = getattr(h, "after", None)
-                if after is not None:
-                    repl = after(kind, out)
-                    if repl is not None:
-                        out = repl
-            return _check_finite(kind, out)
+            with obs.span("estimator.finalize", call=call):
+                out = finalize()
+                with obs.span("host.vote"):
+                    for h in self._hooks:
+                        after = getattr(h, "after", None)
+                        if after is not None:
+                            repl = after(kind, out)
+                            if repl is not None:
+                                out = repl
+                    return _check_finite(kind, out)
 
         return _maybe_defer(run, deferred)
 
@@ -321,11 +349,15 @@ class CostEstimator:
 
     # -- generic batch estimation -------------------------------------------------
 
+    @staticmethod
+    def _featurize(traces) -> JointGraph:
+        """A sequence of traces featurized into one batched host ``JointGraph``."""
+        with obs.span("host.featurize"):
+            return batch_graphs([build_graph(t.query, t.cluster, t.placement) for t in traces])
+
     def _as_graphs(self, batch) -> JointGraph:
         """A batched ``JointGraph``, or a sequence of traces to featurize, on the device."""
-        if not isinstance(batch, JointGraph):
-            batch = batch_graphs([build_graph(t.query, t.cluster, t.placement) for t in batch])
-        return graphs_to_device(batch, self.device)
+        return graphs_to_device(batch if isinstance(batch, JointGraph) else self._featurize(batch), self.device)
 
     def estimate(
         self, batch, metrics: Optional[Sequence[str]] = None, deferred: bool = False
@@ -340,19 +372,28 @@ class CostEstimator:
         Returns metric -> predictions aligned with the batch.
         """
         metrics = tuple(metrics) if metrics is not None else tuple(self.models)
-        g = self._as_graphs(batch)
-        self._before("estimate", int(g.op_x.shape[0]) if g.op_x.ndim == 3 else 1)
-        stacked = self._stacked_for(metrics)
-        with torch.no_grad():
-            if stacked is None:  # mixed architectures: per-metric forwards, shared batch
-                raws = {m: forward_ensemble(self._params_for(m), g, self.models[m][1]) for m in metrics}
+        with obs.span("estimator.estimate") as sp:
+            host = batch if isinstance(batch, JointGraph) else self._featurize(batch)
+            g = graphs_to_device(host, self.device)
+            n = int(g.op_x.shape[0]) if g.op_x.ndim == 3 else 1
+            sp.set(n=n)
+            self._before("estimate", n)
+            stacked = self._stacked_for(metrics)
+            with torch.no_grad(), obs.span("gnn.forward") as fw:
+                if stacked is None:  # mixed architectures: per-metric forwards, shared batch
+                    raws = {m: forward_ensemble(self._params_for(m), g, self.models[m][1]) for m in metrics}
+                else:
+                    if fw.on and not stacked.cfgs[0].traditional_mp:  # the full-depth scan: every level, every row
+                        fw.set(rows3=stacked.cfgs[0].gnn.max_depth * int(np.size(host.op_mask)),
+                               real3=_real3(host.op_mask, host.op_depth))
+                    raw = forward_ensemble(stacked.params, g, stacked.cfgs[0])
+            if stacked is None:
                 return self._finish(
                     "estimate",
                     lambda: {m: _ensemble_vote(_host(raws[m]), self.models[m][1]) for m in metrics},
                     deferred,
                 )
-            raw = forward_ensemble(stacked.params, g, stacked.cfgs[0])
-        return self._finish("estimate", lambda: _split_votes(_host(raw), stacked), deferred)
+            return self._finish("estimate", lambda: _split_votes(_host(raw), stacked), deferred)
 
     def proba(self, batch, metric: str) -> np.ndarray:
         """Mean ensemble probability for one classification metric."""
@@ -370,8 +411,10 @@ class CostEstimator:
             key = skeleton_cache_key(query, cluster)
         hit = self._skeletons.get(key)
         if hit is not None:
+            obs.count("cache.skeleton.hit")
             self._skeletons.move_to_end(key)
             return hit
+        obs.count("cache.skeleton.miss")
         host = build_graph_skeleton(query, cluster)
         entry = (host, graphs_to_device(host, self.device), query_static(query))
         self._skeletons[key] = entry
@@ -420,28 +463,35 @@ class CostEstimator:
 
         def score(assignments: np.ndarray) -> Dict[str, np.ndarray]:
             n = len(assignments)
-            if n == 0:
-                raise ValueError("no candidates to score")
-            self._before("score", n)
-            a_place = build_a_place_batch(query, cluster, assignments)
-            pad = bucket_size(n) - n
-            if pad:
-                a_place = np.concatenate([a_place, np.repeat(a_place[-1:], pad, axis=0)])
-            (a_place,) = nn.arrays_to_device([a_place], self.device)
-            if stacked is not None:
-                pending = placed_predict_fused(
-                    stacked, skel, a_place, static, n_hw, deferred=True,
-                    chunk=self.policy.score_chunk,
-                )
-                return self._finish(
-                    "score", lambda: {m: v[:n] for m, v in pending.result().items()}, deferred
-                )
-            # heterogeneous (non-fusable) configs: per-metric loop
-            out = {
-                m: placed_predict(self._params_for(m), skel, a_place, static, self.models[m][1])[:n]
-                for m in metrics
-            }
-            return self._finish("score", lambda: out, deferred)
+            with obs.span("estimator.score", n=n):
+                if n == 0:
+                    raise ValueError("no candidates to score")
+                self._before("score", n)
+                with obs.span("host.a_place", rows=n):
+                    a_place = build_a_place_batch(query, cluster, assignments)
+                    pad = bucket_size(n) - n
+                    if pad:
+                        a_place = np.concatenate([a_place, np.repeat(a_place[-1:], pad, axis=0)])
+                (a_place,) = nn.arrays_to_device([a_place], self.device)
+                if stacked is not None:
+                    with obs.span("gnn.forward") as fw:
+                        if fw.on:  # the exact plan: each level covers just its operators
+                            per_row = sum(len(level) for level in static.updates)
+                            fw.set(rows3=int(a_place.shape[0]) * per_row, real3=n * per_row)
+                        pending = placed_predict_fused(
+                            stacked, skel, a_place, static, n_hw, deferred=True,
+                            chunk=self.policy.score_chunk,
+                        )
+                    return self._finish(
+                        "score", lambda: {m: v[:n] for m, v in pending.result().items()}, deferred
+                    )
+                # heterogeneous (non-fusable) configs: per-metric loop
+                with obs.span("gnn.forward"):
+                    out = {
+                        m: placed_predict(self._params_for(m), skel, a_place, static, self.models[m][1])[:n]
+                        for m in metrics
+                    }
+                return self._finish("score", lambda: out, deferred)
 
         return score
 
@@ -478,11 +528,11 @@ class CostEstimator:
         stacked = self._stacked_for(metrics)
         return stacked is not None and not stacked.cfgs[0].traditional_mp
 
-    @staticmethod
-    def _host_graphs(batch) -> JointGraph:
+    @classmethod
+    def _host_graphs(cls, batch) -> JointGraph:
         """A batch as a numpy ``JointGraph`` with a batch axis (single graphs promoted)."""
         if not isinstance(batch, JointGraph):
-            batch = batch_graphs([build_graph(t.query, t.cluster, t.placement) for t in batch])
+            batch = cls._featurize(batch)
         g = JointGraph(*[np.asarray(x) for x in batch])
         return JointGraph(*[x[None] for x in g]) if g.op_x.ndim == 2 else g
 
@@ -490,12 +540,13 @@ class CostEstimator:
     def _split_back(launched, stacked: StackedEnsembles, metrics, sizes) -> List[Dict[str, np.ndarray]]:
         """Per-chunk raw outputs -> votes, concatenated, then split per ``sizes``."""
         parts = [_split_votes(_host(raw), stacked) for raw in launched]
-        merged = {m: np.concatenate([p[m] for p in parts]) for m in metrics}
-        out, off = [], 0
-        for size in sizes:
-            out.append({m: merged[m][off : off + size] for m in metrics})
-            off += size
-        return out
+        with obs.span("host.vote"):
+            merged = {m: np.concatenate([p[m] for p in parts]) for m in metrics}
+            out, off = [], 0
+            for size in sizes:
+                out.append({m: merged[m][off : off + size] for m in metrics})
+                off += size
+            return out
 
     def _merged_forward(
         self,
@@ -521,11 +572,15 @@ class CostEstimator:
         launched: List[torch.Tensor] = []
         for s in range(0, total, step):
             chunk = JointGraph(*[x[s : s + step] for x in merged])
-            banding = exact_banding_cached(chunk)
-            with torch.no_grad():
-                launched.append(
-                    forward_ensemble(stacked.params, graphs_to_device(chunk, self.device), stacked.cfgs[0], banding)
-                )
+            with obs.span("host.banding") as sp:
+                banding, hit = exact_banding_lookup(chunk)
+                sp.set(hit=hit)
+            g = graphs_to_device(chunk, self.device)
+            with torch.no_grad(), obs.span("gnn.forward") as fw:
+                if fw.on:  # the banded plan: each level covers its span, in every graph
+                    fw.set(rows3=int(chunk.op_x.shape[0]) * _level_rows(banding),
+                           real3=_real3(chunk.op_mask, chunk.op_depth))
+                launched.append(forward_ensemble(stacked.params, g, stacked.cfgs[0], banding))
         return _maybe_defer(lambda: self._split_back(launched, stacked, metrics, sizes), deferred)
 
     def estimate_many(
@@ -548,10 +603,22 @@ class CostEstimator:
         batches = list(batches)
         if not batches:
             return _maybe_defer(lambda: [], deferred)
-        host = [self._host_graphs(b) for b in batches]
-        if sum(int(g.op_x.shape[0]) for g in host) == 0:
+        with obs.span("estimator.estimate_many") as sp:
+            return self._estimate_many(batches, metrics, max_rows, deferred, sp)
+
+    def _estimate_many(self, batches, metrics, max_rows, deferred, sp):
+        """``estimate_many``'s body, inside its root span ``sp``."""
+        with obs.span("host.merge") as mg:
+            host = [self._host_graphs(b) for b in batches]
+            n = sum(int(g.op_x.shape[0]) for g in host)
+            cross = n > 0 and self.supports_cross_query(metrics)
+            if cross:
+                merged, sizes = merge_graph_batches(host)
+            mg.set(graphs=n)
+        sp.set(n=n)
+        if n == 0:
             raise ValueError("no graphs to estimate")
-        if not self.supports_cross_query(metrics):
+        if not cross:
             # heterogeneous configs: per-batch fallback, chunked like the
             # merged path; every chunk is queued before any is read back,
             # and the finiteness guard runs inside the delegated
@@ -580,8 +647,7 @@ class CostEstimator:
                 return [o if o is not None else {m: template[m][:0] for m in metrics} for o in out]
 
             return _maybe_defer(finalize_fallback, deferred)
-        self._before("estimate_many", sum(int(g.op_x.shape[0]) for g in host))
-        merged, sizes = merge_graph_batches(host)
+        self._before("estimate_many", n)
         pending = self._merged_forward(merged, sizes, metrics, max_rows, deferred=True)
         return self._finish("estimate_many", pending.result, deferred)
 
@@ -609,76 +675,93 @@ class CostEstimator:
         requests = list(requests)
         if not requests:
             return _maybe_defer(lambda: [], deferred)
-        if not self.supports_cross_query(metrics):
-            # the finiteness guard runs inside the delegated ``score`` calls
-            per_req = [self.score(q, c, a, metrics, deferred=True) for q, c, a in requests]
-            return _maybe_defer(lambda: [p.result() for p in per_req], deferred)
+        with obs.span("estimator.score_many") as sp:
+            if not self.supports_cross_query(metrics):
+                # the finiteness guard runs inside the delegated ``score`` calls
+                per_req = [self.score(q, c, a, metrics, deferred=True) for q, c, a in requests]
+                return _maybe_defer(lambda: [p.result() for p in per_req], deferred)
+            return self._score_many(requests, metrics, max_rows, keys, deferred, sp)
+
+    def _score_many(self, requests, metrics, max_rows, keys, deferred, sp):
+        """``score_many``'s merged path, inside its root span ``sp``."""
         stacked = self._stacked_for(metrics)
-        if keys is None:
-            keys = [skeleton_cache_key(q, c) for q, c, _ in requests]
+        with obs.span("host.keys", requests=len(requests)):
+            if keys is None:
+                keys = [skeleton_cache_key(q, c) for q, c, _ in requests]
 
-        # regroup structure-major: one skeleton + one concatenated candidate
-        # block per structure; remember each request's slice for the split
-        groups: "OrderedDict[Tuple, List[int]]" = OrderedDict()
-        mats = []
-        for i, (q, c, a) in enumerate(requests):
-            a = np.asarray(a, dtype=np.int64)
-            if len(a) == 0:
-                raise ValueError("no candidates to score")
-            mats.append(a)
-            groups.setdefault(keys[i], []).append(i)
-        self._before("score_many", sum(len(a) for a in mats))
+            # regroup structure-major: one skeleton + one concatenated candidate
+            # block per structure; remember each request's slice for the split
+            groups: "OrderedDict[Tuple, List[int]]" = OrderedDict()
+            mats = []
+            for i, (q, c, a) in enumerate(requests):
+                a = np.asarray(a, dtype=np.int64)
+                if len(a) == 0:
+                    raise ValueError("no candidates to score")
+                mats.append(a)
+                groups.setdefault(keys[i], []).append(i)
+        n = sum(len(a) for a in mats)
+        sp.set(n=n)
+        self._before("score_many", n)
 
-        index_of, skels_dev, banding, max_parents = self._merged_group_for(requests, groups)
-        blocks, ids = [], []
-        for key, idxs in groups.items():
-            q, c, _ = requests[idxs[0]]
-            block = build_a_place_batch(q, c, np.concatenate([mats[i] for i in idxs]))
-            blocks.append(block)
-            ids.append(np.full(len(block), index_of[key], dtype=np.int64))
+        index_of, skels_dev, banding, max_parents, real3 = self._merged_group_for(requests, groups)
+        with obs.span("host.a_place", rows=n):
+            blocks, ids = [], []
+            for key, idxs in groups.items():
+                q, c, _ = requests[idxs[0]]
+                block = build_a_place_batch(q, c, np.concatenate([mats[i] for i in idxs]))
+                blocks.append(block)
+                ids.append(np.full(len(block), index_of[key], dtype=np.int64))
+            skel_id, a_place = np.concatenate(ids), np.concatenate(blocks)
         pending = self._merged_placements_forward(
-            skels_dev, banding, max_parents, np.concatenate(ids), np.concatenate(blocks),
-            [len(b) for b in blocks], stacked, metrics, max_rows, deferred=True,
+            skels_dev, banding, max_parents, skel_id, a_place,
+            [len(b) for b in blocks], stacked, metrics, max_rows, deferred=True, real3=real3,
         )
 
         def finalize() -> List[Dict[str, np.ndarray]]:
             # split each structure's block back onto its requests, in order
-            out: List[Optional[Dict[str, np.ndarray]]] = [None] * len(requests)
-            for g_out, idxs in zip(pending.result(), groups.values()):
-                off = 0
-                for i in idxs:
-                    n = len(mats[i])
-                    out[i] = {m: g_out[m][off : off + n] for m in metrics}
-                    off += n
-            return out
+            parts = pending.result()
+            with obs.span("host.vote"):
+                out: List[Optional[Dict[str, np.ndarray]]] = [None] * len(requests)
+                for g_out, idxs in zip(parts, groups.values()):
+                    off = 0
+                    for i in idxs:
+                        n = len(mats[i])
+                        out[i] = {m: g_out[m][off : off + n] for m in metrics}
+                        off += n
+                return out
 
         return self._finish("score_many", finalize, deferred)
 
     def _merged_group_for(self, requests, groups) -> Tuple:
         """(key -> skeleton index, device skeleton stack, banding,
-        max_parents) for one drain mix.
+        max_parents, real rows at depth >= 1 per skeleton) for one drain mix.
 
         Keyed on the *set* of structure keys (drains of one recurring mix may
         arrive in any order, so the index mapping is part of the entry); the
         mix pays stacking, banding, the in-degree check and the skeleton
         device copy once, in an LRU of ``policy.merged_group_cache_size``.
         """
-        mix_key = frozenset(groups)
-        hit = self._merged_groups.get(mix_key)
-        if hit is not None:
-            self._merged_groups.move_to_end(mix_key)
-            return hit
-        index_of = {key: i for i, key in enumerate(groups)}
-        skels = batch_graphs(
-            [self._skeleton_entry(*requests[idxs[0]][:2], key)[0] for key, idxs in groups.items()]
-        )
-        banding = exact_banding_cached(skels)
-        max_parents = int(np.asarray(skels.a_flow).sum(axis=-2).max(initial=1))
-        entry = (index_of, graphs_to_device(skels, self.device), banding, max_parents)
-        self._merged_groups[mix_key] = entry
-        while len(self._merged_groups) > self.policy.merged_group_cache_size:
-            self._merged_groups.popitem(last=False)
-        return entry
+        with obs.span("host.group") as sp:
+            mix_key = frozenset(groups)
+            hit = self._merged_groups.get(mix_key)
+            sp.set(hit=hit is not None)
+            if hit is not None:
+                obs.count("cache.group.hit")
+                self._merged_groups.move_to_end(mix_key)
+                return hit
+            obs.count("cache.group.miss")
+            index_of = {key: i for i, key in enumerate(groups)}
+            skels = batch_graphs(
+                [self._skeleton_entry(*requests[idxs[0]][:2], key)[0] for key, idxs in groups.items()]
+            )
+            banding = exact_banding_cached(skels)
+            max_parents = int(np.asarray(skels.a_flow).sum(axis=-2).max(initial=1))
+            real3 = np.count_nonzero((np.asarray(skels.op_mask) > 0) & (np.asarray(skels.op_depth) >= 1), axis=-1)
+            entry = (index_of, graphs_to_device(skels, self.device), banding, max_parents, real3)
+            self._merged_groups[mix_key] = entry
+            while len(self._merged_groups) > self.policy.merged_group_cache_size:
+                self._merged_groups.popitem(last=False)
+            return entry
 
     def _merged_placements_forward(
         self,
@@ -692,19 +775,24 @@ class CostEstimator:
         metrics: Tuple[str, ...],
         max_rows: Optional[int],
         deferred: bool = False,
+        real3: Optional[np.ndarray] = None,
     ) -> List[Dict[str, np.ndarray]]:
         """Chunked ``apply_gnn_merged`` over a structure-major placement batch.
 
         The rows go to the device in one copy; each ``max_rows`` chunk (not
         bucket-padded, as in ``_merged_forward``) is queued on the device
-        before any is read back.
+        before any is read back.  ``real3`` holds each skeleton's real rows
+        at depth 1 or more, for the forward span's row counts.
         """
         total = int(a_place.shape[0])
         step = max_rows if max_rows else total
         skel_id_dev, a_place_dev = nn.arrays_to_device([skel_id, a_place], self.device)
         launched: List[torch.Tensor] = []
         for s in range(0, total, step):
-            with torch.no_grad():
+            with torch.no_grad(), obs.span("gnn.forward") as fw:
+                if fw.on and real3 is not None:  # the banded plan over the skeletons' rows
+                    rows = skel_id[s : s + step]
+                    fw.set(rows3=len(rows) * _level_rows(banding), real3=int(real3[rows].sum()))
                 launched.append(apply_gnn_merged(
                     stacked.params, skels_dev, skel_id_dev[s : s + step], a_place_dev[s : s + step],
                     stacked.cfgs[0].gnn, banding, max_parents,

@@ -52,6 +52,11 @@ Latency engineering:
 
 The worker is one Python thread that runs under ``torch.no_grad()`` on the
 current CUDA stream; client threads touch only futures and numpy answers.
+While ``torch.profiler`` records, each pass of the worker is a
+``service.drain`` span (``repro_torch.obs``; attrs ``n`` and ``ids``, the
+popped requests' submission numbers) over ``service.pop``, one
+``service.launch`` a group and ``service.finalize``, which carries the call
+id of the drain that launched it; the estimator's spans nest inside them.
 Every ``Exception`` from the estimator other than the typed verdicts counts
 as transient and is retried, a CUDA error included: a sticky CUDA error then
 fails every later attempt and keeps the breaker open until restart.
@@ -59,6 +64,7 @@ fails every later attempt and keeps the breaker open until restart.
 
 from __future__ import annotations
 
+import itertools
 import threading
 import time
 from collections import OrderedDict, deque
@@ -69,6 +75,7 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.bucketing import bucket_size
 from repro_torch.core.graph import JointGraph, skeleton_cache_key
 from repro_torch.serve.estimator import CostEstimator, NonFiniteEstimate
@@ -160,6 +167,7 @@ class _Request(NamedTuple):
     future: Future
     t_submit: float  # monotonic enqueue time (time-in-queue tracking)
     deadline_s: Optional[float] = None  # answer-by budget from submit time
+    rid: int = -1  # submission number, 0-based per service (the drain span's ``ids``)
 
 
 class _LaunchedGroup(NamedTuple):
@@ -171,6 +179,7 @@ class _LaunchedGroup(NamedTuple):
 
     reqs: List[_Request]
     finalize: Callable[[], Tuple[List[object], int, int]]
+    call: Optional[int] = None  # the launching drain's span call id, joined by its finalize
 
 
 class PlacementService:
@@ -266,6 +275,7 @@ class PlacementService:
         self._known_mixes: "OrderedDict[frozenset, bool]" = OrderedDict()
         self._n_runtime_mixes = 0
         self._queue: "deque[_Request]" = deque()
+        self._rids = itertools.count()
         self._cond = threading.Condition()
         self._stopped = False
         self._thread: Optional[threading.Thread] = None
@@ -503,7 +513,7 @@ class PlacementService:
                     self._cond.wait()
                 if self._stopped:
                     raise RuntimeError("PlacementService is closed")
-            self._queue.append(req)
+            self._queue.append(req._replace(rid=next(self._rids)))
             self.stats.n_requests += 1
             if len(self._queue) > self.stats.max_queue_depth:
                 self.stats.max_queue_depth = len(self._queue)
@@ -603,49 +613,53 @@ class PlacementService:
                         and self._pending_swap is None
                     ):
                         self._cond.wait()
-                    # the drain boundary: an estimator swap applies here —
-                    # groups in `pending` hold the OLD estimator in their
-                    # finalize closures and finish on it; everything popped
-                    # from now on routes to the new one
-                    swap, self._pending_swap = self._pending_swap, None
-                    old_est = None
+                with obs.span("service.drain") as drain:
+                    with obs.span("service.pop"), self._cond:
+                        # the drain boundary: an estimator swap applies here —
+                        # groups in `pending` hold the OLD estimator in their
+                        # finalize closures and finish on it; everything popped
+                        # from now on routes to the new one
+                        swap, self._pending_swap = self._pending_swap, None
+                        old_est = None
+                        if swap is not None:
+                            old_est, self.estimator = self.estimator, swap[0]
+                            self.stats.n_swaps += 1
+                        batch = list(self._queue)
+                        self._queue.clear()
+                        stopped = self._stopped
+                        if batch:
+                            now = time.monotonic()
+                            self.stats.n_batches += 1
+                            self.stats.n_drained += len(batch)
+                            if len(batch) > self.stats.max_drain:
+                                self.stats.max_drain = len(batch)
+                            for r in batch:
+                                wait = now - r.t_submit
+                                self.stats.queue_wait_s += wait
+                                if wait > self.stats.max_queue_wait_s:
+                                    self.stats.max_queue_wait_s = wait
+                            self._cond.notify_all()  # blocked submitters: depth dropped
+                    if drain.on:
+                        drain.set(n=len(batch), ids=[r.rid for r in batch])
                     if swap is not None:
-                        old_est, self.estimator = self.estimator, swap[0]
-                        self.stats.n_swaps += 1
-                    batch = list(self._queue)
-                    self._queue.clear()
-                    stopped = self._stopped
+                        # resolve outside the lock: done-callbacks run inline
+                        swap[1].set_result(old_est)
+                    launched = []
                     if batch:
-                        now = time.monotonic()
-                        self.stats.n_batches += 1
-                        self.stats.n_drained += len(batch)
-                        if len(batch) > self.stats.max_drain:
-                            self.stats.max_drain = len(batch)
-                        for r in batch:
-                            wait = now - r.t_submit
-                            self.stats.queue_wait_s += wait
-                            if wait > self.stats.max_queue_wait_s:
-                                self.stats.max_queue_wait_s = wait
-                        self._cond.notify_all()  # blocked submitters: depth dropped
-                if swap is not None:
-                    # resolve outside the lock: done-callbacks run inline
-                    swap[1].set_result(old_est)
-                launched = []
-                if batch:
-                    groups: Dict[Tuple, List[_Request]] = {}  # dicts keep insertion order
-                    for req in batch:
-                        groups.setdefault(req.key, []).append(req)
-                    for reqs in groups.values():
-                        launched.append(self._launch_group(reqs))
-                for lg in pending:
-                    self._finalize_group(lg)
-                if self.double_buffer:
-                    pending = launched
-                else:
-                    for lg in launched:
+                        groups: Dict[Tuple, List[_Request]] = {}  # dicts keep insertion order
+                        for req in batch:
+                            groups.setdefault(req.key, []).append(req)
+                        for reqs in groups.values():
+                            launched.append(self._launch_group(reqs))
+                    for lg in pending:
                         self._finalize_group(lg)
-                    pending = []
-                batch, launched = [], []
+                    if self.double_buffer:
+                        pending = launched
+                    else:
+                        for lg in launched:
+                            self._finalize_group(lg)
+                        pending = []
+                    batch, launched = [], []
                 if stopped and not pending:
                     with self._cond:
                         if not self._queue and self._pending_swap is None:
@@ -677,76 +691,78 @@ class PlacementService:
 
     def _launch_group(self, reqs: List[_Request]) -> _LaunchedGroup:
         """Host-side half of one group: featurize + dispatch, don't wait."""
-        try:
-            if reqs[0].kind == "score":
-                finalize = self._launch_scores(reqs)
-            else:
-                finalize = self._launch_estimates(reqs)
-        except BaseException as e:  # launch failed: the whole group shares the error
-            finalize = (lambda err: lambda: ([err] * len(reqs), 0, 0))(e)
-        return _LaunchedGroup(reqs, finalize)
+        with obs.span("service.launch", kind=reqs[0].kind, n=len(reqs)):
+            try:
+                if reqs[0].kind == "score":
+                    finalize = self._launch_scores(reqs)
+                else:
+                    finalize = self._launch_estimates(reqs)
+            except BaseException as e:  # launch failed: the whole group shares the error
+                finalize = (lambda err: lambda: ([err] * len(reqs), 0, 0))(e)
+            return _LaunchedGroup(reqs, finalize, obs.current_call())
 
     def _finalize_group(self, lg: _LaunchedGroup) -> None:
         """Device-side half: read results back, record work, resolve futures."""
-        try:
-            answers, n_forwards, n_cross = lg.finalize()
-        except BaseException as e:  # deliver, don't kill the worker
-            answers, n_forwards, n_cross = [e] * len(lg.reqs), 0, 0
-        answers = list(answers)
-        # deadlines are judged where the answer materializes: an estimate
-        # that finished after the caller's budget is replaced, not delivered
-        now = time.monotonic()
-        for j, r in enumerate(lg.reqs):
-            if r.deadline_s is not None and (now - r.t_submit) > r.deadline_s:
-                answers[j] = EstimateTimeoutError(
-                    f"{r.kind} answered in {now - r.t_submit:.3f}s, "
-                    f"over its {r.deadline_s:.3f}s deadline"
-                )
-        # count the work before resolving futures, so a caller woken by
-        # result() never observes counters lagging its own answer
-        with self._cond:
-            self.stats.n_forwards += n_forwards
-            self.stats.n_cross_query += n_cross
-            if len(lg.reqs) > 1:
-                self.stats.n_coalesced += len(lg.reqs)
-            for answer in answers:
-                if isinstance(answer, _Degraded):
-                    self.stats.n_degraded += 1
-                    if isinstance(answer.cause, NonFiniteEstimate):
-                        self.stats.n_nonfinite += 1
-                    if answer.cause is not None:
-                        # a real estimator failure behind the fallback; a
-                        # causeless _Degraded is the breaker's own
-                        # short-circuit and must not re-feed it
-                        self._breaker.record_failure()
-                elif isinstance(answer, EstimateTimeoutError):
-                    self.stats.n_timeouts += 1
-                    self._breaker.record_failure()
-                elif isinstance(answer, NonFiniteEstimate):
-                    self.stats.n_nonfinite += 1
-                    self.stats.n_failed += 1
-                    self._breaker.record_failure()
-                elif isinstance(answer, ValueError):
-                    pass  # caller error, says nothing about estimator health
-                elif isinstance(answer, BaseException):
-                    self.stats.n_failed += 1
-                    self._breaker.record_failure()
-                else:
-                    self._breaker.record_success()
-            self.stats.degraded = self._breaker.state != "closed"
-        # a per-request answer may be an exception (bad request, failed
-        # subgroup): metrics-tuple groups span unrelated callers, so one
-        # request's failure must never fail its batchmates
-        for r, answer in zip(lg.reqs, answers):
-            if isinstance(answer, BaseException):
-                r.future.set_exception(answer)
-            else:
-                r.future.set_result(answer)
-        for obs in list(self._observers):
+        with obs.span("service.finalize", call=lg.call, n=len(lg.reqs)):
             try:
-                obs(lg.reqs, answers)
-            except Exception:
-                pass  # observers are best-effort, never worker-fatal
+                answers, n_forwards, n_cross = lg.finalize()
+            except BaseException as e:  # deliver, don't kill the worker
+                answers, n_forwards, n_cross = [e] * len(lg.reqs), 0, 0
+            answers = list(answers)
+            # deadlines are judged where the answer materializes: an estimate
+            # that finished after the caller's budget is replaced, not delivered
+            now = time.monotonic()
+            for j, r in enumerate(lg.reqs):
+                if r.deadline_s is not None and (now - r.t_submit) > r.deadline_s:
+                    answers[j] = EstimateTimeoutError(
+                        f"{r.kind} answered in {now - r.t_submit:.3f}s, "
+                        f"over its {r.deadline_s:.3f}s deadline"
+                    )
+            # count the work before resolving futures, so a caller woken by
+            # result() never observes counters lagging its own answer
+            with self._cond:
+                self.stats.n_forwards += n_forwards
+                self.stats.n_cross_query += n_cross
+                if len(lg.reqs) > 1:
+                    self.stats.n_coalesced += len(lg.reqs)
+                for answer in answers:
+                    if isinstance(answer, _Degraded):
+                        self.stats.n_degraded += 1
+                        if isinstance(answer.cause, NonFiniteEstimate):
+                            self.stats.n_nonfinite += 1
+                        if answer.cause is not None:
+                            # a real estimator failure behind the fallback; a
+                            # causeless _Degraded is the breaker's own
+                            # short-circuit and must not re-feed it
+                            self._breaker.record_failure()
+                    elif isinstance(answer, EstimateTimeoutError):
+                        self.stats.n_timeouts += 1
+                        self._breaker.record_failure()
+                    elif isinstance(answer, NonFiniteEstimate):
+                        self.stats.n_nonfinite += 1
+                        self.stats.n_failed += 1
+                        self._breaker.record_failure()
+                    elif isinstance(answer, ValueError):
+                        pass  # caller error, says nothing about estimator health
+                    elif isinstance(answer, BaseException):
+                        self.stats.n_failed += 1
+                        self._breaker.record_failure()
+                    else:
+                        self._breaker.record_success()
+                self.stats.degraded = self._breaker.state != "closed"
+            # a per-request answer may be an exception (bad request, failed
+            # subgroup): metrics-tuple groups span unrelated callers, so one
+            # request's failure must never fail its batchmates
+            for r, answer in zip(lg.reqs, answers):
+                if isinstance(answer, BaseException):
+                    r.future.set_exception(answer)
+                else:
+                    r.future.set_result(answer)
+            for observer in list(self._observers):
+                try:
+                    observer(lg.reqs, answers)
+                except Exception:
+                    pass  # observers are best-effort, never worker-fatal
 
     def _launch_scores(self, reqs: List[_Request]) -> Callable:
         metrics = reqs[0].payload[3]

@@ -14,7 +14,7 @@ from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch import nn
+from repro_torch import nn, obs
 from repro_torch.core.model import CostModelConfig
 
 
@@ -72,8 +72,9 @@ def stack_metric_models(
 
 def _split_votes(raw: np.ndarray, stacked: StackedEnsembles) -> Dict[str, np.ndarray]:
     """(sum_E, B) fused raw outputs -> per-metric cost-space predictions."""
-    out, off = {}, 0
-    for m, cfg, sz in zip(stacked.metrics, stacked.cfgs, stacked.sizes):
-        out[m] = _ensemble_vote(raw[off : off + sz], cfg)
-        off += sz
-    return out
+    with obs.span("host.vote"):
+        out, off = {}, 0
+        for m, cfg, sz in zip(stacked.metrics, stacked.cfgs, stacked.sizes):
+            out[m] = _ensemble_vote(raw[off : off + sz], cfg)
+            off += sz
+        return out

@@ -36,7 +36,7 @@ from repro.core.graph import batch_graphs as jax_batch_graphs, build_graph as ja
 from repro.dsps import WorkloadGenerator as JaxGenerator
 from repro.dsps.placement import Placement
 from repro.placement import sample_assignment_matrix as jax_sample
-from repro_torch import core, nn
+from repro_torch import core, nn, obs
 from repro_torch.core import flat_vector, gnn, graph, model
 from repro_torch.core.model import CLASSIFICATION_METRICS, REGRESSION_METRICS
 from repro_torch.dsps import WorkloadGenerator
@@ -153,13 +153,12 @@ def test_traditional_forward_calls_only_banked_mlp(members, n_rounds, monkeypatc
     count; no stage-3 or merged-engine wrapper."""
     p, _, cfg = _traditional(members=members, use_pallas=True)
     tg = _as_torch(_corpus_batch(n=4))
-    wrapper = bank_ops.banked_mlp_slotted
-    launches = wrapper.launches
+    launches = obs.counters().get("banked_mlp_slotted.launches", 0)
     counts = _count_calls(monkeypatch)
     gnn.apply_gnn_traditional(nn.params_from_numpy(p), tg, cfg.gnn, n_rounds=n_rounds)
     assert counts == {"banked_mlp": 2 + 2 * n_rounds, "mp_update": 0, "mp_sweep": 0, "gather_sum": 0,
                       "segment_sum": 0}
-    assert wrapper.launches == launches  # the CPU launches nothing
+    assert obs.counters().get("banked_mlp_slotted.launches", 0) == launches  # the CPU launches nothing
 
 
 def test_traditional_three_layer_bank_raises_under_use_pallas():

@@ -22,7 +22,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch import nn
+from repro_torch import nn, obs
 from repro_torch.core import gnn
 from repro_torch.core.gnn import GNNConfig
 from repro_torch.core.graph import SLOT_RANGES, batch_graphs, build_graph, exact_banding
@@ -45,6 +45,11 @@ from repro_torch.placement.enumerate import sample_assignment_matrix
 from repro_torch.serve.estimator import CostEstimator
 
 TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _launches(kernel: str) -> int:
+    """Kernel launches so far in this process (``repro_torch.obs``'s ``<kernel>.launches``)."""
+    return obs.counters().get(f"{kernel}.launches", 0)
 
 
 @pytest.fixture
@@ -97,11 +102,11 @@ def test_banked_mlp_kernel_matches_plain(cuda, F, T, N, B, shared, H1, H2, seed)
         ranges = ((0, 0, N),)
     else:
         ranges = SLOT_RANGES if N == 12 else ((2, 0, 1), (0, 1, 4), (4, 4, 7))
-    before = bank_ops.banked_mlp_slotted.launches
+    before = _launches("banked_mlp_slotted")
     got = bank_ops.banked_mlp_slotted(p, x, ranges)
     again = bank_ops.banked_mlp_slotted(p, x, ranges)
     torch.cuda.synchronize()
-    assert bank_ops.banked_mlp_slotted.launches == before + 2
+    assert _launches("banked_mlp_slotted") == before + 2
     torch.testing.assert_close(got, banked_mlp_slotted_ref(p, x, ranges), **TOL)
     assert torch.equal(got, again)
 
@@ -116,11 +121,11 @@ def test_banked_mlp_kernel_refuses_other_widths(cuda):
     for F, H1, H2 in ((8, 12, 16), (8, 16, 20), (8, 128, 128), (39, 5, 3), (256, 128, 128), (256, 100, 128)):
         x = torch.randn((2, 33, 12, F), generator=gen).to(cuda)
         p = _bank(gen, 2, 5, F, H1, cuda, H2, glorot=True)
-        before = bank_ops.banked_mlp_slotted.launches
+        before = _launches("banked_mlp_slotted")
         got = bank_ops.banked_mlp_slotted(p, x, SLOT_RANGES)
         again = bank_ops.banked_mlp_slotted(p, x, SLOT_RANGES)
         torch.cuda.synchronize()
-        assert bank_ops.banked_mlp_slotted.launches == before + 2
+        assert _launches("banked_mlp_slotted") == before + 2
         assert got.shape == (2, 33, 12, H2) and got.is_contiguous()
         torch.testing.assert_close(got, banked_mlp_slotted_ref(p, x, SLOT_RANGES), **TOL)
         assert torch.equal(got, again)
@@ -247,11 +252,11 @@ def test_estimator_on_card_matches_cpu(cuda):
     traces = workload.corpus(64)
     q, c = workload.query(kind="three_way"), workload.cluster(6)
     a = sample_assignment_matrix(q, c, 100, np.random.default_rng(0))
-    before = (bank_ops.banked_mlp_slotted.launches, mp_ops.mp_update.launches)
+    before = (_launches("banked_mlp_slotted"), _launches("mp_update"))
     for got, want in ((gpu.estimate(traces), cpu.estimate(traces)), (gpu.score(q, c, a), cpu.score(q, c, a))):
         for m in REGRESSION_METRICS:
             np.testing.assert_allclose(got[m], want[m], rtol=1e-4, atol=1e-6, err_msg=m)
-    after = (bank_ops.banked_mlp_slotted.launches, mp_ops.mp_update.launches)
+    after = (_launches("banked_mlp_slotted"), _launches("mp_update"))
     assert after[0] > before[0] and after[1] > before[1]
 
 
@@ -287,11 +292,11 @@ def _random_graphs(gen, B, N, device, lead=None):
 
 def _sweep_matches_plain(p, h, a, depth, mask, levels):
     """One launch within 1e-5 of the plain version; a second one bitwise equal."""
-    before = sweep_ops.mp_sweep.launches
+    before = _launches("mp_sweep")
     got = sweep_ops.mp_sweep(p, h, a, depth, mask, levels)
     again = sweep_ops.mp_sweep(p, h, a, depth, mask, levels)
     torch.cuda.synchronize()
-    assert sweep_ops.mp_sweep.launches == before + 2
+    assert _launches("mp_sweep") == before + 2
     torch.testing.assert_close(got, mp_sweep_ref(p, h, a, depth, mask, levels), **TOL)
     assert torch.equal(got, again)
     return got
@@ -329,11 +334,11 @@ def test_mp_sweep_kernel_matches_plain(cuda, case):
     if glorot:
         _sweep_matches_plain(p, h, a, depth, mask, levels)
         return
-    before = sweep_ops.mp_sweep.launches
+    before = _launches("mp_sweep")
     got = sweep_ops.mp_sweep(p, h, a, depth, mask, levels)
     again = sweep_ops.mp_sweep(p, h, a, depth, mask, levels)
     torch.cuda.synchronize()
-    assert sweep_ops.mp_sweep.launches == before + 2
+    assert _launches("mp_sweep") == before + 2
     assert torch.equal(got, again)
     p64 = {"layers": [{k: v.double() for k, v in layer.items()} for layer in p["layers"]]}
     exact = mp_sweep_ref(p64, h.double(), a.double(), depth, mask.double(), levels)
@@ -437,11 +442,11 @@ def test_segment_sum_kernel_matches_plain(cuda):
     gen = torch.Generator().manual_seed(5)
     x = torch.randn((E, B, N, H), generator=gen).to(cuda)
     seg = torch.randint(0, S, (B, N), generator=gen).to(cuda)
-    before = seg_ops.segment_sum.launches
+    before = _launches("segment_sum")
     got = seg_ops.segment_sum(x, seg, S)
     again = seg_ops.segment_sum(x, seg, S)
     torch.cuda.synchronize()
-    assert seg_ops.segment_sum.launches == before + 2
+    assert _launches("segment_sum") == before + 2
     torch.testing.assert_close(got, segment_sum_ref(x, seg, S), **TOL)
     assert torch.equal(got, again)
 
@@ -459,18 +464,18 @@ def test_cross_query_paths_on_card_match_cpu(cuda):
     workload = WorkloadGenerator(seed=3)
     traces = workload.corpus(96)
     batches = [traces[:40], traces[40:41], traces[41:]]
-    counters = (mp_ops.mp_update, sweep_ops.mp_sweep, seg_ops.gather_sum, seg_ops.segment_sum)
-    before = [k.launches for k in counters]
+    counters = ("mp_update", "mp_sweep", "gather_sum", "segment_sum")
+    before = [_launches(k) for k in counters]
     got, want = gpu.estimate_many(batches), cpu.estimate_many(batches)
-    moved = [k.launches - b for k, b in zip(counters, before)]
+    moved = [_launches(k) - b for k, b in zip(counters, before)]
     assert moved == [0, 1, 0, 0]
     reqs = []
     for i, kind in enumerate(("linear", "two_way", "three_way", "two_way")):
         q, c = workload.query(kind=kind, name=f"r{i}"), workload.cluster(4 + i)
         reqs.append((q, c, sample_assignment_matrix(q, c, 50, np.random.default_rng(i))))
-    before = [k.launches for k in counters]
+    before = [_launches(k) for k in counters]
     got_s, want_s = gpu.score_many(reqs), cpu.score_many(reqs)
-    moved = [k.launches - b for k, b in zip(counters, before)]
+    moved = [_launches(k) - b for k, b in zip(counters, before)]
     assert moved[0] == moved[1] == 0 and moved[2] > 1 and moved[3] == 1
     for g_, w_ in zip(got + got_s, want + want_s):
         for m in REGRESSION_METRICS:
@@ -507,11 +512,11 @@ def test_linear_scan_kernel_matches_plain(cuda, B, T, D, h0_slice, near_one):
     stacked = torch.randn((3, B, D + 5), generator=gen).to(cuda)
     h0 = stacked[1, :, 2 : D + 2] if h0_slice else stacked[1, :, :D].contiguous()
     assert h0.is_contiguous() != h0_slice
-    before = scan_ops.linear_scan.launches
+    before = _launches("linear_scan")
     got = scan_ops.linear_scan(a, b, h0)
     again = scan_ops.linear_scan(a, b, h0)
     torch.cuda.synchronize()
-    assert scan_ops.linear_scan.launches == before + 2
+    assert _launches("linear_scan") == before + 2
     want = linear_scan_ref(a, b, h0)
     torch.testing.assert_close(got, want, **TOL)
     assert torch.equal(got, again)
@@ -540,19 +545,19 @@ def test_reduced_lm_on_card_matches_cpu(cuda):
     toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 12)).astype(np.int32)
     pos, n_rec = 0, sum(k == "rec" for k in cfg.pattern) * cfg.n_groups + sum(k == "rec" for k in cfg.suffix)
     for _ in range(7):
-        before = scan_ops.linear_scan.launches
+        before = _launches("linear_scan")
         want, caches[0], nxt = step_cpu(cpu_p, caches[0], toks, pos)
         got, caches[1], _ = step_gpu(gpu_p, caches[1], toks, pos)
         torch.cuda.synchronize()
-        assert scan_ops.linear_scan.launches == before + n_rec == before + 6
+        assert _launches("linear_scan") == before + n_rec == before + 6
         torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
         nn.tree_map(lambda g, c: torch.testing.assert_close(g.cpu(), c, rtol=1e-4, atol=1e-4), caches[1], caches[0])
         pos += toks.shape[1]
         toks = nxt.numpy()
     plain = steps.make_serve_step(dataclasses.replace(cfg, use_rglru_kernel=False))
-    before = scan_ops.linear_scan.launches
+    before = _launches("linear_scan")
     plain(gpu_p, caches[1], toks, pos)
-    assert scan_ops.linear_scan.launches == before
+    assert _launches("linear_scan") == before
 
 
 # -- gradients: each kernel's autograd.Function at the training shape --------------
@@ -651,9 +656,9 @@ def test_cost_model_gradient_through_kernels_matches_plain(cuda, metric):
     cfg = CostModelConfig(metric=metric, gnn=GNNConfig(use_pallas=True))
     plain = CostModelConfig(metric=metric, gnn=GNNConfig(use_pallas=False))
     params = nn.to_device(init_cost_model(torch.Generator().manual_seed(0), cfg), cuda)
-    before = (bank_ops.banked_mlp_slotted.launches, sweep_ops.mp_sweep.launches)
+    before = (_launches("banked_mlp_slotted"), _launches("mp_sweep"))
     loss, grads = loop.loss_and_grads(params, g, y, cfg, band)
-    assert (bank_ops.banked_mlp_slotted.launches - before[0], sweep_ops.mp_sweep.launches - before[1]) == (4, 1)
+    assert (_launches("banked_mlp_slotted") - before[0], _launches("mp_sweep") - before[1]) == (4, 1)
     want_loss, want = loop.loss_and_grads(params, g, y, plain, band)
     torch.testing.assert_close(loss, want_loss, **TOL)
     for (path, a), (_, b) in zip(nn.tree_leaves_with_paths(grads), nn.tree_leaves_with_paths(want)):
@@ -675,10 +680,10 @@ def test_cost_model_widths_through_kernels_match_plain(cuda, hidden):
     cfg = CostModelConfig(metric="latency_p", gnn=GNNConfig(hidden=hidden, use_pallas=True))
     plain = CostModelConfig(metric="latency_p", gnn=GNNConfig(hidden=hidden, use_pallas=False))
     params = nn.to_device(init_cost_model(torch.Generator().manual_seed(hidden), cfg), cuda)
-    before = (bank_ops.banked_mlp_slotted.launches, sweep_ops.mp_sweep.launches)
+    before = (_launches("banked_mlp_slotted"), _launches("mp_sweep"))
     with torch.no_grad():
         got = forward_ensemble(params, g, cfg, band)
-    assert (bank_ops.banked_mlp_slotted.launches - before[0], sweep_ops.mp_sweep.launches - before[1]) == (4, 1)
+    assert (_launches("banked_mlp_slotted") - before[0], _launches("mp_sweep") - before[1]) == (4, 1)
     with torch.no_grad():
         torch.testing.assert_close(got, forward_ensemble(params, g, plain, band), **TOL)
     loss, grads = loop.loss_and_grads(params, g, y, cfg, band)
@@ -707,10 +712,10 @@ def test_extrap_run_on_card_matches_the_cpu(cuda):
     tr, va, _ = batching.split_dataset(batching.dataset_from_traces(traces, "success"), seed=launch_train.SPLIT_SEED)
     cfg = CostModelConfig(metric="success", gnn=GNNConfig(use_pallas=True), n_ensemble=1)
     tcfg = loop.TrainConfig(epochs=1, batch_size=512, lr=1.5e-3, seed=0, exact_banding=True)
-    before = (bank_ops.banked_mlp_slotted.launches, sweep_ops.mp_sweep.launches)
+    before = (_launches("banked_mlp_slotted"), _launches("mp_sweep"))
     card = loop.train_cost_model(tr, va, cfg, tcfg, device=cuda)
-    assert bank_ops.banked_mlp_slotted.launches - before[0] == 4 * (card.steps + 1)
-    assert sweep_ops.mp_sweep.launches - before[1] == card.steps + 1
+    assert _launches("banked_mlp_slotted") - before[0] == 4 * (card.steps + 1)
+    assert _launches("mp_sweep") - before[1] == card.steps + 1
     cpu = loop.train_cost_model(tr, va, cfg, tcfg, device="cpu")
     assert card.steps == cpu.steps == 31
     assert abs(card.best_val - cpu.best_val) <= 1e-3 * abs(cpu.best_val), (card.best_val, cpu.best_val)
@@ -739,14 +744,13 @@ def test_traditional_forward_through_kernels_matches_plain(cuda):
     cfg = CostModelConfig(metric="latency_p", gnn=GNNConfig(use_pallas=True), traditional_mp=True)
     plain = dataclasses.replace(cfg, gnn=GNNConfig(use_pallas=False))
     params = nn.to_device(init_cost_model(torch.Generator().manual_seed(0), cfg), cuda)
-    wrappers = (bank_ops.banked_mlp_slotted, mp_ops.mp_update, sweep_ops.mp_sweep, seg_ops.gather_sum,
-                seg_ops.segment_sum)
-    before = [w.launches for w in wrappers]
+    wrappers = ("banked_mlp_slotted", "mp_update", "mp_sweep", "gather_sum", "segment_sum")
+    before = [_launches(w) for w in wrappers]
     with torch.no_grad():
         got = forward_ensemble(params, g, cfg)
         again = forward_ensemble(params, g, cfg)
         want = forward_ensemble(params, g, plain)
-    assert [w.launches - b for w, b in zip(wrappers, before)] == [16, 0, 0, 0, 0]
+    assert [_launches(w) - b for w, b in zip(wrappers, before)] == [16, 0, 0, 0, 0]
     assert got.shape == (3, int(g.op_x.shape[0]))
     torch.testing.assert_close(got, want, **TOL)
     assert torch.equal(got, again)
@@ -763,9 +767,9 @@ def test_traditional_gradient_through_kernels_matches_plain(cuda, metric):
     cfg = CostModelConfig(metric=metric, gnn=GNNConfig(use_pallas=True), traditional_mp=True)
     plain = dataclasses.replace(cfg, gnn=GNNConfig(use_pallas=False))
     params = nn.to_device(init_cost_model(torch.Generator().manual_seed(0), cfg), cuda)
-    before = (bank_ops.banked_mlp_slotted.launches, sweep_ops.mp_sweep.launches)
+    before = (_launches("banked_mlp_slotted"), _launches("mp_sweep"))
     loss, grads = loop.loss_and_grads(params, g, y, cfg, band)
-    assert (bank_ops.banked_mlp_slotted.launches - before[0], sweep_ops.mp_sweep.launches - before[1]) == (8, 0)
+    assert (_launches("banked_mlp_slotted") - before[0], _launches("mp_sweep") - before[1]) == (8, 0)
     want_loss, want = loop.loss_and_grads(params, g, y, plain, band)
     torch.testing.assert_close(loss, want_loss, **TOL)
     for (path, a), (_, b) in zip(nn.tree_leaves_with_paths(grads), nn.tree_leaves_with_paths(want)):
@@ -789,11 +793,11 @@ def test_linear_scan_backward_matches_plain_vjp(cuda, B, T, D):
     b = torch.randn((B, T, D), generator=gen).to(cuda).requires_grad_()
     h0 = torch.randn((B, D), generator=gen).to(cuda).requires_grad_()
     g = torch.randn((B, T, D), generator=gen).to(cuda)
-    before = scan_ops.linear_scan.launches
+    before = _launches("linear_scan")
     h = scan_ops.linear_scan(a, b, h0)
     got = torch.autograd.grad(h, (a, b, h0), g)
     torch.cuda.synchronize()
-    assert scan_ops.linear_scan.launches == before + 2
+    assert _launches("linear_scan") == before + 2
     want = oracle_vjp(SimpleNamespace(needs_input_grad=(True, True, True)), linear_scan_ref, g, a, b, h0)
     for x, y in zip(got, want):
         torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-5 * float(y.abs().max()))

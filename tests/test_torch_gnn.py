@@ -20,7 +20,7 @@ import repro.core.gnn as jgnn
 import repro.core.graph as jgraph
 from repro.dsps import WorkloadGenerator as JaxGenerator
 from repro.placement import sample_assignment_matrix as jax_sample
-from repro_torch import nn
+from repro_torch import nn, obs
 from repro_torch.core import gnn, graph
 from repro_torch.core.model import CostModelConfig, init_cost_model
 from repro_torch.dsps import WorkloadGenerator
@@ -207,7 +207,7 @@ def test_kernel_calls_per_score_do_not_depend_on_members(n_ensemble, monkeypatch
     q, c, _, _, static = _placed_inputs(kind="two_way", n=2, seed=9)
     assign = sample_assignment_matrix(q, c, 16, np.random.default_rng(0))
     est.score(q, c, assign)  # warm the skeleton cache
-    launches = (bank_ops.banked_mlp_slotted.launches, mp_ops.mp_update.launches)
+    launches = tuple(obs.counters().get(f"{k}.launches", 0) for k in ("banked_mlp_slotted", "mp_update"))
     counts = _count_calls(monkeypatch)
     est.score(q, c, assign)
     levels = sum(1 for level in static.updates if level)
@@ -347,7 +347,7 @@ def test_seg_gather_calls_per_merged_forward(n_ensemble, monkeypatch):
         q, c = gen.query(kind=k, name=f"c{i}"), gen.cluster(4)
         reqs.append((q, c, sample_assignment_matrix(q, c, 5, np.random.default_rng(i))))
     est.score_many(reqs)  # warm the merged group
-    (_, _, band, _), = est._merged_groups.values()
+    (_, _, band, _, _), = est._merged_groups.values()
     counts = _count_calls(monkeypatch)
     est.score_many(reqs)
     levels = len(band.levels)

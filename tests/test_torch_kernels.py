@@ -21,7 +21,7 @@ from repro.kernels.banked_mlp.ops import banked_mlp_slotted as jax_banked_mlp
 from repro.kernels.mp_sweep.ops import mp_sweep as jax_mp_sweep
 from repro.kernels.mp_update.ops import mp_update as jax_mp_update
 from repro.kernels.seg_gather.ops import gather_sum as jax_gather_sum, segment_sum as jax_segment_sum
-from repro_torch import nn
+from repro_torch import nn, obs
 from repro_torch.core import gnn
 from repro_torch.core.graph import batch_banding, batch_graphs, bucket_size, build_graph, exact_banding, pad_batch
 from repro_torch.dsps import WorkloadGenerator
@@ -94,7 +94,7 @@ def test_banked_mlp_wrapper_refuses_what_the_kernel_does_not_take():
         bank_ops.banked_mlp_slotted(p, x, SLOT_RANGES[1:])
     with pytest.raises(NotImplementedError, match="two layers"):
         bank_ops.banked_mlp_slotted({"layers": p["layers"] * 2}, x, SLOT_RANGES)
-    assert bank_ops.banked_mlp_slotted.launches == 0  # the CPU never launches
+    assert obs.counters().get("banked_mlp_slotted.launches", 0) == 0  # the CPU never launches
 
 
 def _mp_inputs(seed, B, H, shared=False):
@@ -165,7 +165,7 @@ def test_mp_update_wrapper_checks():
         mp_ops.mp_update(p, h[None], a, depth, mask, 1, ((1, 3, 6),), row_span=(3, 7))
     with pytest.raises(ValueError, match="batch"):
         mp_ops.mp_update(p, h[None], a[:1], depth, mask, 1, SLOT_RANGES)
-    assert mp_ops.mp_update.launches == 0
+    assert obs.counters().get("mp_update.launches", 0) == 0
 
 
 def _banded_graphs(seed, trim, n=24):
@@ -228,7 +228,7 @@ def test_mp_sweep_wrapper_checks():
         sweep_ops.mp_sweep(p, h[None], a, depth, mask, ((1, (3, 7), ((1, 3, 7),), 13),))
     with pytest.raises(NotImplementedError, match="two layers"):
         sweep_ops.mp_sweep({"layers": p["layers"] * 2}, h[None], a, depth, mask, ((1, None, SLOT_RANGES, None),))
-    assert sweep_ops.mp_sweep.launches == 0
+    assert obs.counters().get("mp_sweep.launches", 0) == 0
 
 
 @pytest.mark.parametrize("P,column_slice", [(1, False), (2, False), (2, True)])
@@ -272,7 +272,7 @@ def test_seg_gather_wrapper_checks():
         seg_ops.segment_sum(h, idx[..., 0][:1], 8)
     with pytest.raises(TypeError, match="float32"):
         seg_ops.segment_sum(h.double(), idx[..., 0], 8)
-    assert seg_ops.gather_sum.launches == seg_ops.segment_sum.launches == 0
+    assert obs.counters().get("gather_sum.launches", 0) == obs.counters().get("segment_sum.launches", 0) == 0
 
 
 def _tf32(a: np.ndarray) -> np.ndarray:
