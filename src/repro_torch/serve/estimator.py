@@ -20,11 +20,16 @@ built from an in-memory model dict or a ``CostModelBundle``.  It owns
 PyTorch runs eagerly, so the JAX package's trace caches have no counterpart,
 and buffer donation none either (PyTorch frees a chunk's inputs when the last
 reference goes).  ``deferred=True`` returns a ``DeferredResult`` once the
-forward is queued on the device, before the results are copied to the host;
-on a GPU that dispatch half waits for nothing on the host (host arrays reach
-the device through one page-locked buffer and a ``non_blocking`` copy,
-``nn.arrays_to_device``), so ``PlacementService`` can launch one drain while
-the device still runs the previous one.  ``add_hook`` is the fault-injection
+forward is queued on the device, before the results reach the host; on a GPU
+that dispatch half waits for nothing on the host (host arrays reach the
+device through one page-locked buffer and a ``non_blocking`` copy,
+``nn.arrays_to_device``), and it queues each forward's readback right behind
+that forward on the same stream: a ``non_blocking`` copy into a page-locked
+host tensor and an event (``_queue_host``).  ``result()`` then waits on that
+event, so it waits for the call's own kernels and never for work launched
+after the call, and the device runs the next call while the host votes on
+this one.  ``PlacementService`` launches one drain while the device still
+runs the previous one.  ``add_hook`` is the fault-injection
 and observation seam (``serve/chaos.py``): ``before`` at dispatch, ``after``
 at finalize, ahead of the finiteness guard.
 
@@ -32,9 +37,11 @@ Every facade call opens spans (``repro_torch.obs``) while ``torch.profiler``
 records: a root ``estimator.<entry>`` over the dispatch half, whose call id
 the deferred ``estimator.finalize`` carries, and inside them the host work
 (``host.*``), the copies to the device (``h2d.stage``), the forward's launch
-(``gnn.forward``, with its stage-3 row counts), the readback (``d2h.wait``)
-and the vote (``host.vote``).  The skeleton, merged-group and banding caches
-count their hits and misses (``cache.*``).
+(``gnn.forward``, with its stage-3 row counts), the wait for the readback
+(``d2h.wait``; on a GPU with ``ready``, whether it had landed already) and the
+vote (``host.vote``).  The skeleton, merged-group and banding caches count
+their hits and misses (``cache.*``), and on a GPU each readback counts
+``d2h.ready`` or ``d2h.blocked``.
 """
 
 from __future__ import annotations
@@ -42,7 +49,7 @@ from __future__ import annotations
 import warnings
 from collections import OrderedDict
 from collections.abc import Mapping
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -110,8 +117,8 @@ def _check_finite(kind: str, out):
 class DeferredResult:
     """Device work already queued; the host-side finalize is deferred.
 
-    ``result()`` copies the device values to the host (which waits for the
-    device) and runs the remaining host work (vote, split per metric).
+    ``result()`` waits for the readback queued at dispatch (on the CPU: copies
+    the values now) and runs the remaining host work (vote, split per metric).
     """
 
     __slots__ = ("_finalize", "_value", "_done")
@@ -133,8 +140,39 @@ def _maybe_defer(finalize, deferred: bool):
     return DeferredResult(finalize) if deferred else finalize()
 
 
-def _host(raw: torch.Tensor) -> np.ndarray:
+class _Readback(NamedTuple):
+    """A device tensor's copy to page-locked host memory, queued on its stream,
+    and the event recorded right after it."""
+
+    host: torch.Tensor
+    done: torch.cuda.Event
+
+
+def _queue_host(raw: torch.Tensor):
+    """``raw``'s readback, queued now: on a GPU a ``non_blocking`` copy into a
+    page-locked host tensor behind the kernels that make ``raw``, and an event
+    after it; on the CPU ``raw`` itself, copied when ``_host`` reads it."""
+    if raw.device.type != "cuda":
+        return raw
+    host = torch.empty(raw.shape, dtype=raw.dtype, pin_memory=True)
+    host.copy_(raw, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(raw.device))
+    return _Readback(host, done)
+
+
+def _host(raw) -> np.ndarray:
+    """The values of a device tensor, or of a ``_Readback``, as a host array.
+    A readback waits for its own event only, and counts whether it had
+    landed already (``d2h.ready``) or not (``d2h.blocked``)."""
     with obs.span("d2h.wait") as sp:
+        if isinstance(raw, _Readback):
+            ready = raw.done.query()
+            obs.count("d2h.ready" if ready else "d2h.blocked")
+            raw.done.synchronize()
+            if sp.on:
+                sp.set(bytes=raw.host.nbytes, ready=int(ready))
+            return raw.host.numpy()
         if sp.on:
             sp.set(bytes=raw.numel() * raw.element_size())
         return raw.detach().cpu().numpy()
@@ -216,6 +254,7 @@ def placed_predict_fused(
         chunk = active_policy().score_chunk
     with torch.no_grad():
         raw = apply_gnn_placed_stacked(stacked.params, skel, a_place, static, stacked.cfgs[0].gnn, n_hw, chunk)
+    raw = _queue_host(raw)
     return _maybe_defer(lambda: _split_votes(_host(raw), stacked), deferred)
 
 
@@ -388,11 +427,13 @@ class CostEstimator:
                                real3=_real3(host.op_mask, host.op_depth))
                     raw = forward_ensemble(stacked.params, g, stacked.cfgs[0])
             if stacked is None:
+                raws = {m: _queue_host(r) for m, r in raws.items()}
                 return self._finish(
                     "estimate",
                     lambda: {m: _ensemble_vote(_host(raws[m]), self.models[m][1]) for m in metrics},
                     deferred,
                 )
+            raw = _queue_host(raw)
             return self._finish("estimate", lambda: _split_votes(_host(raw), stacked), deferred)
 
     def proba(self, batch, metric: str) -> np.ndarray:
@@ -563,13 +604,14 @@ class CostEstimator:
         tracks real rows: the fused ``sweep`` plan, one ``mp_sweep`` launch
         per chunk under ``use_pallas``.  Chunks are not bucket-padded: the
         forward runs eagerly, so a power-of-two row count would only add
-        work.  Every chunk is queued on the device before any is read back;
-        answers are split back per source batch.
+        work.  Every chunk, with its readback right behind it, is queued on
+        the device before the host waits on any; answers are split back per
+        source batch.
         """
         stacked = self._stacked_for(metrics)
         total = int(merged.op_x.shape[0])
         step = max_rows if max_rows else total
-        launched: List[torch.Tensor] = []
+        launched = []  # each chunk's readback (``_queue_host``)
         for s in range(0, total, step):
             chunk = JointGraph(*[x[s : s + step] for x in merged])
             with obs.span("host.banding") as sp:
@@ -580,7 +622,8 @@ class CostEstimator:
                 if fw.on:  # the banded plan: each level covers its span, in every graph
                     fw.set(rows3=int(chunk.op_x.shape[0]) * _level_rows(banding),
                            real3=_real3(chunk.op_mask, chunk.op_depth))
-                launched.append(forward_ensemble(stacked.params, g, stacked.cfgs[0], banding))
+                raw = forward_ensemble(stacked.params, g, stacked.cfgs[0], banding)
+            launched.append(_queue_host(raw))
         return _maybe_defer(lambda: self._split_back(launched, stacked, metrics, sizes), deferred)
 
     def estimate_many(
@@ -780,23 +823,25 @@ class CostEstimator:
         """Chunked ``apply_gnn_merged`` over a structure-major placement batch.
 
         The rows go to the device in one copy; each ``max_rows`` chunk (not
-        bucket-padded, as in ``_merged_forward``) is queued on the device
-        before any is read back.  ``real3`` holds each skeleton's real rows
-        at depth 1 or more, for the forward span's row counts.
+        bucket-padded, as in ``_merged_forward``) is queued on the device,
+        with its readback right behind it, before the host waits on any.
+        ``real3`` holds each skeleton's real rows at depth 1 or more, for the
+        forward span's row counts.
         """
         total = int(a_place.shape[0])
         step = max_rows if max_rows else total
         skel_id_dev, a_place_dev = nn.arrays_to_device([skel_id, a_place], self.device)
-        launched: List[torch.Tensor] = []
+        launched = []  # each chunk's readback (``_queue_host``)
         for s in range(0, total, step):
             with torch.no_grad(), obs.span("gnn.forward") as fw:
                 if fw.on and real3 is not None:  # the banded plan over the skeletons' rows
                     rows = skel_id[s : s + step]
                     fw.set(rows3=len(rows) * _level_rows(banding), real3=int(real3[rows].sum()))
-                launched.append(apply_gnn_merged(
+                raw = apply_gnn_merged(
                     stacked.params, skels_dev, skel_id_dev[s : s + step], a_place_dev[s : s + step],
                     stacked.cfgs[0].gnn, banding, max_parents,
-                ))
+                )
+            launched.append(_queue_host(raw))
         return _maybe_defer(lambda: self._split_back(launched, stacked, metrics, sizes), deferred)
 
     def optimize(self, query, cluster, target_metric: str = "latency_p", **kwargs):

@@ -16,6 +16,7 @@ training loop's step.
 """
 
 import dataclasses
+import time
 
 import numpy as np
 import pytest
@@ -241,12 +242,17 @@ def test_kernel_wrappers_raise_on_other_dtypes(cuda):
         bank_ops.banked_mlp_slotted(p, torch.zeros((2, 1, 12, 8), device=cuda, dtype=torch.bfloat16), SLOT_RANGES)
 
 
-@pytest.mark.gpu
-def test_estimator_on_card_matches_cpu(cuda):
+def _five_metric_models():
+    """The five metrics' ensembles (3 members, hidden 64, through the kernels) at a fixed seed."""
     cfg = GNNConfig(hidden=64, use_pallas=True)
     gen = torch.Generator().manual_seed(0)
-    models = {m: (init_cost_model(gen, CostModelConfig(metric=m, gnn=cfg)), CostModelConfig(metric=m, gnn=cfg))
-              for m in ALL_METRICS}
+    return {m: (init_cost_model(gen, CostModelConfig(metric=m, gnn=cfg)), CostModelConfig(metric=m, gnn=cfg))
+            for m in ALL_METRICS}
+
+
+@pytest.mark.gpu
+def test_estimator_on_card_matches_cpu(cuda):
+    models = _five_metric_models()
     gpu, cpu = CostEstimator(models), CostEstimator(models, device="cpu")
     workload = WorkloadGenerator(seed=3)
     traces = workload.corpus(64)
@@ -456,10 +462,7 @@ def test_cross_query_paths_on_card_match_cpu(cuda):
     """``estimate_many`` (one mp_sweep launch, no mp_update) and
     ``score_many`` (seg_gather launches, no mp_update / mp_sweep) on the
     card against the same estimator on the CPU."""
-    cfg = GNNConfig(hidden=64, use_pallas=True)
-    gen = torch.Generator().manual_seed(0)
-    models = {m: (init_cost_model(gen, CostModelConfig(metric=m, gnn=cfg)), CostModelConfig(metric=m, gnn=cfg))
-              for m in ALL_METRICS}
+    models = _five_metric_models()
     gpu, cpu = CostEstimator(models), CostEstimator(models, device="cpu")
     workload = WorkloadGenerator(seed=3)
     traces = workload.corpus(96)
@@ -480,6 +483,93 @@ def test_cross_query_paths_on_card_match_cpu(cuda):
     for g_, w_ in zip(got + got_s, want + want_s):
         for m in REGRESSION_METRICS:
             np.testing.assert_allclose(g_[m], w_[m], rtol=1e-4, atol=1e-6, err_msg=m)
+
+
+def _spin_cycles(ms: float) -> int:
+    """``torch.cuda._sleep`` cycles that keep the current stream busy about ``ms`` milliseconds."""
+    start, end, n = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True), 10_000_000
+    start.record()
+    torch.cuda._sleep(n)
+    end.record()
+    end.synchronize()
+    return int(n * ms / start.elapsed_time(end))
+
+
+def _d2h_counts():
+    return tuple(obs.counters().get(f"d2h.{k}", 0) for k in ("ready", "blocked"))
+
+
+@pytest.mark.gpu
+def test_deferred_readback_waits_for_its_own_call_only(cuda):
+    """A deferred ``estimate``'s ``result()`` returns in well under a 200-ms spin queued on the
+    stream after the call (its readback was queued at dispatch, right behind its own kernels)
+    and equals a non-deferred call bit for bit.  A readback that landed before the finalize
+    counts ``d2h.ready``; one held behind a spin queued ahead of the call, ``d2h.blocked``."""
+    est = CostEstimator(_five_metric_models())
+    g = batch_graphs([build_graph(t.query, t.cluster, t.placement) for t in WorkloadGenerator(seed=3).corpus(256)])
+    want = est.estimate(g)  # builds the kernels and fills the caches
+    spin = _spin_cycles(200.0)
+    torch.cuda.synchronize()
+    pending = est.estimate(g, deferred=True)
+    torch.cuda._sleep(spin)
+    t = time.perf_counter()
+    got = pending.result()
+    waited = time.perf_counter() - t
+    torch.cuda.synchronize()
+    assert waited < 0.05, f"result() waited {waited * 1e3:.1f} ms behind a 200-ms spin queued after the call"
+    assert got.keys() == want.keys()
+    for m in want:
+        assert np.array_equal(got[m], want[m]), m
+    before = _d2h_counts()
+    pending = est.estimate(g, deferred=True)
+    torch.cuda.synchronize()
+    pending.result()
+    assert _d2h_counts() == (before[0] + 1, before[1])
+    before = _d2h_counts()
+    torch.cuda._sleep(spin)
+    est.estimate(g, deferred=True).result()
+    assert _d2h_counts() == (before[0], before[1] + 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("entry", ["estimate", "estimate_many", "score_many"])
+def test_deferred_answers_survive_later_calls(cuda, entry):
+    """Call 1's answers are unchanged after 10 more deferred calls on other inputs, two in flight
+    (whose readbacks reuse the caching host allocator's page-locked blocks), and equal a
+    non-deferred call on call 1's inputs made after them, bit for bit."""
+    est = CostEstimator(_five_metric_models())
+    work = WorkloadGenerator(seed=5)
+    traces = work.corpus(352)
+    pool = [batch_graphs([build_graph(t.query, t.cluster, t.placement) for t in traces[i : i + 32]])
+            for i in range(0, 352, 32)]
+    structures = [(work.query(kind=k, name=f"s{i}"), work.cluster(3 + i)) for i, k in
+                  enumerate(("linear", "two_way", "three_way", "linear"))]
+
+    def call(i, deferred=True):
+        if entry == "estimate":
+            return est.estimate(pool[i], deferred=deferred)
+        if entry == "estimate_many":
+            return est.estimate_many([pool[i], pool[(i + 3) % 11]], deferred=deferred)
+        rng = np.random.default_rng(i)
+        return est.score_many([(q, c, sample_assignment_matrix(q, c, 40, rng)) for q, c in structures],
+                              deferred=deferred)
+
+    def parts(out):
+        return [out] if isinstance(out, dict) else list(out)
+
+    first = parts(call(0).result())
+    kept = [{m: v.copy() for m, v in p.items()} for p in first]
+    queue, later = [], []
+    for i in range(1, 11):
+        queue.append(call(i))
+        if len(queue) == 2:
+            later.append(parts(queue.pop(0).result()))
+    later.append(parts(queue.pop(0).result()))
+    assert any(not np.array_equal(p[m], k[m]) for out in later for p, k in zip(out, kept) for m in k)
+    again = parts(call(0, deferred=False))
+    for p, k, a in zip(first, kept, again):
+        for m in k:
+            assert np.array_equal(p[m], k[m]) and np.array_equal(a[m], k[m]), m
 
 
 @pytest.mark.gpu

@@ -6,7 +6,9 @@ call id across its dispatch and its deferred finalize; self times are non-negati
 roots' durations; each record matches its profiler event within 50 us; the forward's stage-3 row
 counts equal a count by hand; a second stretch leaves only its own records; the buffer is bounded;
 counters lose no update across threads; the caches count their hits and misses;
-``PlacementService``'s drains nest the estimator's spans.
+``PlacementService``'s drains nest the estimator's spans.  A readback queued at dispatch (the GPU
+path, with a stand-in event) counts ``d2h.ready`` or ``d2h.blocked`` and marks its ``d2h.wait``;
+the CPU path counts neither.
 """
 
 import os
@@ -26,7 +28,7 @@ from repro_torch.core.graph import MAX_OPS, batch_graphs, build_graph
 from repro_torch.core.model import CostModelConfig, init_cost_model
 from repro_torch.dsps import WorkloadGenerator
 from repro_torch.placement.enumerate import sample_assignment_matrix
-from repro_torch.serve.estimator import CostEstimator
+from repro_torch.serve.estimator import CostEstimator, _host, _Readback
 from repro_torch.serve.service import PlacementService
 
 ENTRIES = ("estimate", "estimate_many", "score_many", "score")
@@ -259,3 +261,40 @@ def test_service_drains_nest_the_estimators_spans(setup):
             parent = by_id[r.parent]
             assert parent.name == ("service.finalize" if r.name == "estimator.finalize" else "service.launch")
     assert {by_id[r.parent].name for r in records if r.name == "service.pop"} == {"service.drain"}
+
+
+class _Event:
+    """A stand-in for a ``torch.cuda.Event`` recorded after a readback's copy."""
+
+    def __init__(self, ready: bool):
+        self.ready, self.waited = ready, False
+
+    def query(self) -> bool:
+        return self.ready
+
+    def synchronize(self) -> None:
+        self.waited = True
+
+
+def _d2h_moved(before) -> dict:
+    return {k: obs.counters().get(k, 0) - before.get(k, 0) for k in ("d2h.ready", "d2h.blocked")}
+
+
+@pytest.mark.parametrize("ready", [True, False])
+def test_a_queued_readback_counts_whether_it_had_landed(ready):
+    raw, done = torch.arange(6.0).reshape(2, 3), _Event(ready)
+    before = obs.counters()
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = _host(_Readback(raw, done))
+    assert done.waited and _d2h_moved(before) == {"d2h.ready": int(ready), "d2h.blocked": int(not ready)}
+    np.testing.assert_array_equal(got, raw.numpy())
+    (wait,) = [r for r in obs.records() if r.name == "d2h.wait"]
+    assert wait.attrs == {"bytes": 24, "ready": int(ready)}
+
+
+def test_the_cpu_readback_queues_nothing(setup):
+    before = obs.counters()
+    _, records = _profiled(lambda: [call() for call in setup[4].values()])
+    assert _d2h_moved(before) == {"d2h.ready": 0, "d2h.blocked": 0}
+    waits = [r.attrs for r in records if r.name == "d2h.wait"]
+    assert waits and all(set(a) == {"bytes"} for a in waits)
