@@ -19,7 +19,7 @@ structure becomes a static stage-3 plan:
                         static row trimming: spans computed from exactly the
                         signatures present in the batch, and rows that carry
                         no operator in ANY member dropped from the layout
-                        entirely.  Cached by signature hash
+                        entirely.  Cached on an exact key of the signature set
                         (``exact_banding_cached``) so zero-copy views and
                         merged request batches never recompute or retrace.
 
@@ -225,7 +225,7 @@ def exact_banding(g) -> BatchBanding:
     )
 
 
-# (flavor, signature-set) -> BatchBanding.  Bands are pure functions of the
+# (flavor, ``banding_key``) -> BatchBanding.  Bands are pure functions of the
 # signature set, so one cache serves every consumer (dataset buckets,
 # zero-copy views, merged serving chunks) and bounds both recomputation and
 # jit retraces.  Capacity comes from the active DispatchPolicy
@@ -239,9 +239,36 @@ def _banding_cache_capacity() -> int:
     return active_policy().banding_cache_size
 
 
+# A row signature packs into one int64 when each slot's ``depth + 1`` (0 for a
+# padded slot) fits its 4 bits and the slots fit 60 bits.
+_SLOT_BITS = 4
+_PACKED_SLOTS = 15
+
+
+def banding_key(g):
+    """An exact key of ``batch_signature(g)``'s set, without building row tuples.
+
+    Each row packs ``depth + 1`` (0 for a padded slot) into 4 bits per slot,
+    one int64 a row; the key is the row width and the sorted unique codes as
+    bytes.  Packing is injective on the signatures (a real slot at depth -1
+    reads as padded in both), so two batches share a key exactly when their
+    signature sets are equal.  Rows wider than 15 slots, a depth outside -1 to
+    14, or depths that are not signed integers key on the signature tuples
+    instead, which never equal a packed key.
+    """
+    depth, mask, _, _ = _batch_arrays(g)
+    n_slots = depth.shape[1]
+    code = (depth + 1) * mask  # a signed overflow reads negative
+    if (depth.dtype.kind != "i" or n_slots > _PACKED_SLOTS
+            or code.size and not (code.min() >= 0 and code.max() < 1 << _SLOT_BITS)):
+        return batch_signature(g)
+    weights = np.left_shift(1, np.arange(0, _SLOT_BITS * n_slots, _SLOT_BITS, dtype=np.int64))
+    return n_slots, np.unique(code @ weights).tobytes()
+
+
 def _banding_lookup(g, flavor: str, compute) -> Tuple[BatchBanding, bool]:
     """(banding, whether the cache held it); counts ``cache.banding.{hit,miss}``."""
-    key = (flavor, batch_signature(g))
+    key = (flavor, banding_key(g))
     hit = _BANDING_CACHE.get(key)
     if hit is not None:
         obs.count("cache.banding.hit")
@@ -254,7 +281,7 @@ def _banding_lookup(g, flavor: str, compute) -> Tuple[BatchBanding, bool]:
 
 
 def exact_banding_lookup(g) -> Tuple[BatchBanding, bool]:
-    """``exact_banding`` memoized on ``batch_signature(g)``, and whether it was a hit."""
+    """``exact_banding`` memoized on ``batch_signature(g)``'s set, and whether it was a hit."""
     return _banding_lookup(g, "exact", exact_banding)
 
 

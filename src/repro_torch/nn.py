@@ -245,19 +245,39 @@ def to_device(params, device: Optional[torch.device]) -> Params:
 Layout = Tuple[Tuple[int, int, torch.dtype, Tuple[int, ...]], ...]
 
 
+def _host_buffer(specs, pin: bool) -> Tuple[torch.Tensor, Layout]:
+    """An empty host buffer (page-locked when ``pin``) for arrays of ``(dtype,
+    shape)``, each 8-byte aligned so it views back: the buffer and each array's
+    ``(offset, bytes, dtype, shape)``."""
+    layout, off = [], 0
+    for dtype, shape in specs:
+        nbytes = np.dtype(dtype).itemsize * math.prod(shape)
+        layout.append((off, nbytes, torch.from_numpy(np.empty(0, dtype)).dtype, tuple(shape)))
+        off += -(-nbytes // 8) * 8
+    return torch.empty((max(off, 1),), dtype=torch.uint8, pin_memory=pin), tuple(layout)
+
+
 def pack_host(arrays: Sequence[np.ndarray], pin: bool) -> Tuple[torch.Tensor, Layout]:
     """Pack numpy arrays into one host buffer (page-locked when ``pin``):
     the buffer and each array's ``(offset, bytes, dtype, shape)``."""
     arrays = [np.ascontiguousarray(a) for a in arrays]
-    layout, off = [], 0
-    for a in arrays:
-        layout.append((off, a.nbytes, torch.from_numpy(a).dtype, a.shape))
-        off += -(-a.nbytes // 8) * 8  # 8-byte aligned, so every field views back
-    buf = torch.empty((max(off, 1),), dtype=torch.uint8, pin_memory=pin)
+    buf, layout = _host_buffer([(a.dtype, a.shape) for a in arrays], pin)
     host = buf.numpy()
     for (o, n, _, _), a in zip(layout, arrays):
         host[o : o + n] = a.reshape(-1).view(np.uint8)
-    return buf, tuple(layout)
+    return buf, layout
+
+
+def pack_host_parts(parts: Sequence[Sequence[np.ndarray]], pin: bool) -> Tuple[torch.Tensor, Layout]:
+    """``pack_host`` of each field's parts joined along axis 0, with
+    ``np.concatenate``'s values: the parts are written straight into the
+    buffer, so their bytes are copied once and no joined array is made."""
+    parts = [[np.asarray(p) for p in ps] for ps in parts]
+    buf, layout = _host_buffer(
+        [(np.result_type(*ps), (sum(len(p) for p in ps),) + ps[0].shape[1:]) for ps in parts], pin)
+    for field, ps in zip(unpack(buf, layout), parts):
+        np.concatenate(ps, axis=0, out=field.numpy())
+    return buf, layout
 
 
 def unpack(buf: torch.Tensor, layout: Layout) -> list:
@@ -265,31 +285,63 @@ def unpack(buf: torch.Tensor, layout: Layout) -> list:
     return [buf[o : o + n].view(dtype).view(shape) for o, n, dtype, shape in layout]
 
 
+def _host_allocs() -> Tuple[int, int]:
+    """Page-locked blocks the caching host allocator has created so far, and their microseconds."""
+    stats = torch.cuda.host_memory_stats_as_nested_dict()
+    return stats.get("num_host_alloc", 0), stats.get("host_alloc_time", {}).get("total", 0)
+
+
+def _copy_pinned(sp, pack, device) -> Tuple[torch.Tensor, Layout, list]:
+    """``pack()``'s page-locked buffer and layout, and the layout's tensors on
+    ``device`` after ONE ``non_blocking`` copy.  The caching host allocator
+    records the copy on the stream and does not hand the buffer out again until
+    the copy has run, so the caller may drop the buffer.  Sets on the span
+    ``sp`` the blocks the allocator had to create (``pinned_allocs``,
+    ``pinned_alloc_us``)."""
+    before = _host_allocs() if sp.on else None
+    buf, layout = pack()
+    out = unpack(buf.to(device, non_blocking=True), layout)
+    if sp.on:
+        allocs, us = _host_allocs()
+        sp.set(pinned_allocs=allocs - before[0], pinned_alloc_us=us - before[1])
+    return buf, layout, out
+
+
 def arrays_to_device(arrays: Sequence[np.ndarray], device) -> list:
     """Numpy arrays as tensors on ``device``: views of the arrays on the CPU;
     on a GPU one page-locked staging buffer and ONE ``non_blocking`` copy, so
-    the host never waits for the device's queued work.  The caching host
-    allocator records the copy on the stream and does not hand the buffer
-    out again until the copy has run, so the staging buffer may be dropped
-    here.  Traced as ``h2d.stage`` (``repro_torch.obs``): its bytes and, on a
-    GPU, the page-locked blocks the caching host allocator had to create for
-    it (``pinned_allocs``, ``pinned_alloc_us``)."""
+    the host never waits for the device's queued work (``_copy_pinned``).
+    Traced as ``h2d.stage`` (``repro_torch.obs``): its bytes and, on a GPU,
+    the page-locked blocks the caching host allocator had to create for it
+    (``pinned_allocs``, ``pinned_alloc_us``)."""
     device = torch.device(device)
     with obs.span("h2d.stage") as sp:
         if device.type == "cpu":
             out = [torch.as_tensor(np.ascontiguousarray(a)) for a in arrays]
         else:
-            before = torch.cuda.host_memory_stats_as_nested_dict() if sp.on else None
-            buf, layout = pack_host(arrays, pin=True)
-            out = unpack(buf.to(device, non_blocking=True), layout)
-            if sp.on:
-                after = torch.cuda.host_memory_stats_as_nested_dict()
-                sp.set(pinned_allocs=after["num_host_alloc"] - before.get("num_host_alloc", 0),
-                       pinned_alloc_us=after["host_alloc_time"]["total"]
-                       - before.get("host_alloc_time", {}).get("total", 0))
+            out = _copy_pinned(sp, lambda: pack_host(arrays, pin=True), device)[2]
         if sp.on:
             sp.set(bytes=sum(int(t.nbytes) for t in out))
         return out
+
+
+def parts_to_device(parts: Sequence[Sequence[np.ndarray]], device) -> Tuple[list, list]:
+    """Each field's parts joined along axis 0, on the host and on ``device``:
+    written straight into one staging buffer (``pack_host_parts``, page-locked
+    on a GPU, where ONE ``non_blocking`` copy follows), so the bytes are copied
+    once on the host.  Returns the joined host arrays, views of that buffer,
+    and the tensors on ``device`` (on the CPU, views of the same buffer).
+    Traced as ``h2d.stage``, with ``arrays_to_device``'s attributes."""
+    device = torch.device(device)
+    with obs.span("h2d.stage") as sp:
+        if device.type == "cpu":
+            buf, layout = pack_host_parts(parts, pin=False)
+            out = unpack(buf, layout)
+        else:
+            buf, layout, out = _copy_pinned(sp, lambda: pack_host_parts(parts, pin=True), device)
+        if sp.on:
+            sp.set(bytes=sum(int(t.nbytes) for t in out))
+        return [t.numpy() for t in unpack(buf, layout)], out
 
 
 def index_tensor(values: Sequence[int], device) -> torch.Tensor:

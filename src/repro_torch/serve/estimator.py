@@ -23,9 +23,10 @@ reference goes).  ``deferred=True`` returns a ``DeferredResult`` once the
 forward is queued on the device, before the results reach the host; on a GPU
 that dispatch half waits for nothing on the host (host arrays reach the
 device through one page-locked buffer and a ``non_blocking`` copy,
-``nn.arrays_to_device``), and it queues each forward's readback right behind
-that forward on the same stream: a ``non_blocking`` copy into a page-locked
-host tensor and an event (``_queue_host``).  ``result()`` then waits on that
+``nn.arrays_to_device``; ``estimate_many`` writes its batches straight into
+that buffer, ``stage_graph_batches``), and it queues each forward's
+readback right behind that forward on the same stream: a ``non_blocking``
+copy into a page-locked host tensor and an event (``_queue_host``).  ``result()`` then waits on that
 event, so it waits for the call's own kernels and never for work launched
 after the call, and the device runs the next call while the host votes on
 this one.  ``PlacementService`` launches one drain while the device still
@@ -193,6 +194,16 @@ def graphs_to_device(g: JointGraph, device) -> JointGraph:
     """A host ``JointGraph`` of numpy arrays as contiguous tensors on ``device``
     (one asynchronous copy on a GPU: ``nn.arrays_to_device``)."""
     return JointGraph(*nn.arrays_to_device(list(g), device))
+
+
+def stage_graph_batches(batches: Sequence[JointGraph], device) -> Tuple[JointGraph, JointGraph]:
+    """Host batches joined along the batch axis, on the host and on ``device``:
+    each field's batches are written straight into one staging buffer
+    (``nn.parts_to_device``), so the bytes are copied once, where
+    ``merge_graph_batches`` then ``graphs_to_device`` copy them twice.  The
+    host graphs are views of that buffer, and equal ``merge_graph_batches``'s."""
+    host, dev = nn.parts_to_device([[getattr(b, f) for b in batches] for f in JointGraph._fields], device)
+    return JointGraph(*host), JointGraph(*dev)
 
 
 # -- stateless scoring primitives -------------------------------------------------
@@ -596,6 +607,7 @@ class CostEstimator:
         metrics: Tuple[str, ...],
         max_rows: Optional[int],
         deferred: bool = False,
+        dev: Optional[JointGraph] = None,
     ) -> List[Dict[str, np.ndarray]]:
         """One stacked forward per ``max_rows`` chunk of a merged host batch.
 
@@ -606,7 +618,9 @@ class CostEstimator:
         forward runs eagerly, so a power-of-two row count would only add
         work.  Every chunk, with its readback right behind it, is queued on
         the device before the host waits on any; answers are split back per
-        source batch.
+        source batch.  ``dev``, the merged batch already on the device
+        (``stage_graph_batches``), is sliced per chunk; without it each chunk
+        is copied to the device on its own.
         """
         stacked = self._stacked_for(metrics)
         total = int(merged.op_x.shape[0])
@@ -617,7 +631,7 @@ class CostEstimator:
             with obs.span("host.banding") as sp:
                 banding, hit = exact_banding_lookup(chunk)
                 sp.set(hit=hit)
-            g = graphs_to_device(chunk, self.device)
+            g = graphs_to_device(chunk, self.device) if dev is None else JointGraph(*[x[s : s + step] for x in dev])
             with torch.no_grad(), obs.span("gnn.forward") as fw:
                 if fw.on:  # the banded plan: each level covers its span, in every graph
                     fw.set(rows3=int(chunk.op_x.shape[0]) * _level_rows(banding),
@@ -653,10 +667,11 @@ class CostEstimator:
         """``estimate_many``'s body, inside its root span ``sp``."""
         with obs.span("host.merge") as mg:
             host = [self._host_graphs(b) for b in batches]
-            n = sum(int(g.op_x.shape[0]) for g in host)
+            sizes = tuple(int(g.op_x.shape[0]) for g in host)
+            n = sum(sizes)
             cross = n > 0 and self.supports_cross_query(metrics)
-            if cross:
-                merged, sizes = merge_graph_batches(host)
+            if cross and self.device.type == "cpu":  # each chunk's tensors are views of these arrays
+                merged, dev = merge_graph_batches(host).graphs, None
             mg.set(graphs=n)
         sp.set(n=n)
         if n == 0:
@@ -691,7 +706,9 @@ class CostEstimator:
 
             return _maybe_defer(finalize_fallback, deferred)
         self._before("estimate_many", n)
-        pending = self._merged_forward(merged, sizes, metrics, max_rows, deferred=True)
+        if self.device.type != "cpu":  # one copy on the host, straight into the staging buffer
+            merged, dev = stage_graph_batches(host, self.device)
+        pending = self._merged_forward(merged, sizes, metrics, max_rows, deferred=True, dev=dev)
         return self._finish("estimate_many", pending.result, deferred)
 
     def score_many(

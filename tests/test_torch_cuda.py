@@ -22,11 +22,12 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch.profiler import ProfilerActivity, profile
 
 from repro_torch import nn, obs
 from repro_torch.core import gnn
 from repro_torch.core.gnn import GNNConfig
-from repro_torch.core.graph import SLOT_RANGES, batch_graphs, build_graph, exact_banding
+from repro_torch.core.graph import SLOT_RANGES, batch_graphs, build_graph, exact_banding, merge_graph_batches
 from repro_torch.core.model import ALL_METRICS, REGRESSION_METRICS, CostModelConfig, forward_ensemble, init_cost_model
 from repro_torch.training import batching, loop
 from repro_torch.dsps import WorkloadGenerator
@@ -570,6 +571,41 @@ def test_deferred_answers_survive_later_calls(cuda, entry):
     for p, k, a in zip(first, kept, again):
         for m in k:
             assert np.array_equal(p[m], k[m]) and np.array_equal(a[m], k[m]), m
+
+
+@pytest.mark.gpu
+def test_estimate_many_staging_survives_queued_calls(cuda):
+    """Three ``estimate_many`` calls on different batch sets of one size, queued behind a 100-ms
+    spin (so no staging copy has run while the host stages the next call), then finished in
+    order: each equals, bitwise, the same call through the parent's path (``merge_graph_batches``, then one
+    ``graphs_to_device`` copy a chunk), so no staging buffer was written again before its copy
+    ran.  Once warm, no ``h2d.stage`` had to create a page-locked block (``pinned_allocs`` 0)."""
+    est = CostEstimator(_five_metric_models())
+    metrics = tuple(est.models)
+    traces = WorkloadGenerator(seed=28).corpus(8 * 96)
+    pool = [batch_graphs([build_graph(t.query, t.cluster, t.placement) for t in traces[i : i + 96]])
+            for i in range(0, len(traces), 96)]
+    sets = [pool[0:3], pool[3:6], [pool[6], pool[7], pool[0]]]  # equal sizes: one block size
+    want = [est._merged_forward(merge_graph_batches(s).graphs, [len(b.op_x) for b in s], metrics, None)
+            for s in sets]
+    spin = _spin_cycles(100.0)
+
+    def queued():
+        torch.cuda.synchronize()
+        torch.cuda._sleep(spin)
+        pending = [est.estimate_many(s, deferred=True) for s in sets]
+        return [p.result() for p in pending]
+
+    queued()  # fills the caching host allocator
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = queued()
+    stages = [r.attrs for r in obs.records() if r.name == "h2d.stage"]
+    assert len(stages) >= 3 and all(a["pinned_allocs"] == 0 for a in stages), stages
+    for g_, w_ in zip(got, want):
+        assert len(g_) == len(w_)
+        for part, ref in zip(g_, w_):
+            for m in metrics:
+                assert np.array_equal(part[m], ref[m]), m
 
 
 @pytest.mark.gpu
