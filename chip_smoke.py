@@ -2153,6 +2153,7 @@ def main() -> int:
     from repro_torch.launch import train as launch_train
     from repro_torch.serve.bundle import corpus_fingerprint
     from repro_torch.serve.estimator import CostEstimator, graphs_to_device
+    from repro_torch.serve.graphs import padded_parts, row_bucket
     from repro_torch.serve.stacking import _ensemble_vote, stack_metric_models
     from repro_torch.training import batching, loop, optim
     from repro_torch.training.compression import ef_init
@@ -2398,14 +2399,16 @@ def main() -> int:
         del h_env, bank_w
 
     # gather_sum / segment_sum at score_many's shapes: the 16-structure drain's
-    # rows (score_many runs them as one chunk, unpadded) on its trimmed
-    # layout, with the engine's own index tables
+    # rows as score_many runs them on the card, one chunk padded to its row
+    # bucket (pad rows skeleton 0, placed nowhere), on the trimmed layout,
+    # with the engine's own index tables
     skels16 = batch_graphs([build_graph_skeleton(q, c) for q, c, _ in drain])
     band16 = exact_banding(skels16)
     keep16 = torch.tensor(band16.rows if band16.rows is not None else range(N), device=dev)
     sk = graphs_to_device(skels16, dev)
-    ids16 = torch.as_tensor(np.concatenate([np.full(len(a), i) for i, (_, _, a) in enumerate(drain)]), device=dev)
-    ap16 = torch.as_tensor(np.concatenate([build_a_place_batch(q, c, a) for q, c, a in drain]), device=dev)
+    real16 = np.concatenate([np.full(len(a), i, dtype=np.int64) for i, (_, _, a) in enumerate(drain)])
+    ids16, ap16 = (torch.as_tensor(np.concatenate(p), device=dev) for p in padded_parts(
+        real16, np.concatenate([build_a_place_batch(q, c, a) for q, c, a in drain]), row_bucket(len(real16))))
     ap16 = ap16.index_select(1, keep16)
     host16 = ap16.argmax(dim=-1)
     placed16 = ap16.amax(dim=-1)[..., None]
@@ -2436,7 +2439,7 @@ def main() -> int:
                            flat_idx, h_rows, mode="sum", per_sample_weights=flat_w).view(Eg, Bg, Rg, Hg))
 
     h_hw16 = torch.randn((E, R16, W, H), generator=rng).to(dev)
-    rows.append(gather_case(f"stage 2, P=1: {R16} rows of {len(drain)} structures", h_hw16, host16[..., None], placed16))
+    rows.append(gather_case(f"stage 2, P=1: {R16} rows ({len(real16)} real) of {len(drain)} structures", h_hw16, host16[..., None], placed16))
     d16, (s16, e16), _, _ = max(gnn._banded_plan(band16, band16.ranges or SLOT_RANGES).levels,
                                 key=lambda lv: lv[1][1] - lv[1][0])
     h16 = torch.randn((E, R16, n16, H), generator=rng).to(dev)

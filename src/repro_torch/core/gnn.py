@@ -288,14 +288,15 @@ def _stages123(
     return nn.apply_mlp(params["out"], pooled)
 
 
-def _trim_rows(g: JointGraph, rows: Tuple[int, ...]) -> JointGraph:
-    """Gather ``rows`` out of the padded operator axis of a batched graph.
+def _trim_rows(g: JointGraph, rows) -> JointGraph:
+    """Gather ``rows`` (a tuple, or an int64 index tensor on the graph's
+    device) out of the padded operator axis of a batched graph.
 
     The dropped rows hold no operator in any graph of the batch: their
     states are masked to zero before every reduction, so removing them
     changes no prediction.  Hardware rows stay untouched.
     """
-    idx = nn.index_tensor(rows, g.op_x.device)
+    idx = rows if isinstance(rows, torch.Tensor) else nn.index_tensor(rows, g.op_x.device)
     return g._replace(
         op_x=g.op_x.index_select(1, idx),
         op_type=g.op_type.index_select(1, idx),
@@ -395,62 +396,68 @@ def validate_merged_parents(a_flow, max_parents: int) -> None:
         )
 
 
-def apply_gnn_merged(
-    params: nn.Params,
-    skels: JointGraph,  # (S, N, .) stacked skeletons (``a_place`` ignored)
-    skel_id: torch.Tensor,  # (B,) int: row -> skeleton
-    a_place: torch.Tensor,  # (B, N, W) one-hot placement adjacency per row
-    cfg: GNNConfig,
-    banding: BatchBanding,
-    max_parents: int = 2,
-) -> torch.Tensor:
-    """ONE member-stacked forward over candidates of S DISTINCT structures.
+class MergedConstants(NamedTuple):
+    """What ``apply_gnn_merged`` derives from the skeleton stack and its
+    banding alone, whatever the rows: computed once per stack
+    (``merged_constants``), read by every forward over it
+    (``apply_gnn_merged_rows``)."""
 
-    The cross-query serving engine: a merged drain's rows reference their
-    structure through ``skel_id`` instead of materializing per-row skeleton
-    copies, and the graph's sparsity is static (every operator has at most
-    ``max_parents`` data-flow parents and exactly one host), so the
-    aggregations become index ops:
+    skels: JointGraph  # (S, N', .) the stack on the banding's trimmed layout
+    rows: Optional[torch.Tensor]  # (N',) int64 padded row of each trimmed row, or None (no trim)
+    ranges: Tuple  # type runs of the layout
+    levels: Tuple  # per stage-3 level: (d, (start, stop), its type runs shifted to start at 0)
+    pidx: torch.Tensor  # (S, N', P) int64: each row's parents
+    pmask: torch.Tensor  # (S, N', P): 1 where a parent is real
 
-      * stage 0 runs on the S skeletons only (every member reads the same
-        input, at member stride 0) and is gathered per row;
-      * stage 1 (OPS->HW) is a per-row ``segment_sum`` over each host's
-        operators;
-      * stage 2 (HW->OPS) is a ``gather_sum`` of each operator's one host
-        state (P = 1, the placed flag as weight);
-      * each stage-3 level is a ``gather_sum`` of the span rows'
-        ``max_parents`` parent states (per-skeleton parent tables, built once
-        per forward from ``a_flow``) and the banked update at the span.
 
-    Numerically equal to ``apply_gnn_stacked`` on the expanded broadcast
-    batch to float tolerance (same sums, another association).  The
-    aggregations run through ``kernels/seg_gather`` whatever ``use_pallas``
-    says; the banked MLPs follow ``use_pallas``.  ``banding`` must come from
-    ``bucketing.exact_banding_cached`` over ``skels``.  The in-degree bound is
-    checked here for CPU skeletons; on a GPU the check would wait for the
-    device, so the caller owns the bound there: the estimator derives
-    ``max_parents`` from its host stack's in-degrees.  Returns ``(E, B)`` raw
-    outputs.
-    """
+def merged_constants(skels: JointGraph, banding: BatchBanding, max_parents: int = 2) -> MergedConstants:
+    """The per-stack constants of ``apply_gnn_merged`` (its docstring has the
+    arguments).  Index tensors reach the device here, through page-locked
+    staging, so a forward over them (``apply_gnn_merged_rows``) copies
+    nothing from the host."""
     if skels.a_flow.device.type == "cpu":
         validate_merged_parents(skels.a_flow, max_parents)
-    ranges = SLOT_RANGES
+    ranges, rows = SLOT_RANGES, None
     if banding.rows is not None:
-        skels = _trim_rows(skels, banding.rows)
-        a_place = a_place.index_select(1, nn.index_tensor(banding.rows, a_place.device))
+        rows = nn.index_tensor(banding.rows, skels.op_x.device)
+        skels = _trim_rows(skels, rows)
         ranges = banding.ranges
-    plan = _banded_plan(banding, ranges)
-    n_hw = skels.hw_x.shape[-2]
-    E = _n_members(params)
-
-    # static sparsity, derived once per forward: parent tables per skeleton
-    # (columns of a_flow hold each row's parents; a stable sort keeps the
-    # reference's parent order) and one host per row
+    levels = tuple(
+        (d, (s, e), tuple((t, a - s, b - s) for t, a, b in level_ranges))
+        for d, (s, e), level_ranges, _ in _banded_plan(banding, ranges).levels
+    )
+    # static sparsity: parent tables per skeleton (columns of a_flow hold each
+    # row's parents; a stable sort keeps the reference's parent order)
     flow_in = skels.a_flow.transpose(-1, -2)  # (S, N, N): [v, u] = u -> v
     pidx = torch.argsort(-flow_in, dim=-1, stable=True)[..., :max_parents]  # (S, N, P)
     pmask = torch.gather(flow_in, -1, pidx)  # (S, N, P) in {0, 1}
-    row_pidx = pidx[skel_id]  # (B, N, P) int64
-    row_pmask = pmask[skel_id]  # (B, N, P)
+    return MergedConstants(skels, rows, ranges, levels, pidx, pmask)
+
+
+def apply_gnn_merged_rows(
+    params: nn.Params,
+    consts: MergedConstants,
+    skel_id: torch.Tensor,  # (B,) int: row -> skeleton
+    a_place: torch.Tensor,  # (B, N, W) one-hot placement adjacency per row, padded layout
+    cfg: GNNConfig,
+) -> torch.Tensor:
+    """``apply_gnn_merged``'s forward over one set of rows, from its stack's
+    ``merged_constants`` -> ``(E, B)`` raw outputs.
+
+    Only device work: no host copy and no host sync, so it can be captured
+    into a CUDA graph.  Rows are independent of one another (no reduction
+    crosses rows), so a row of skeleton 0 placed nowhere (``a_place`` all
+    zeros) is a finite pad that changes no other row's output.
+    """
+    skels, ranges = consts.skels, consts.ranges
+    if consts.rows is not None:
+        a_place = a_place.index_select(1, consts.rows)
+    n_hw = skels.hw_x.shape[-2]
+    E = _n_members(params)
+
+    # per row: its parent tables, its one host, its masks
+    row_pidx = consts.pidx[skel_id]  # (B, N, P) int64
+    row_pmask = consts.pmask[skel_id]  # (B, N, P)
     host = a_place.argmax(dim=-1)  # (B, N) int64
     placed = a_place.amax(dim=-1)[..., None]  # (B, N, 1): 0 for padded rows
     op_mask_s = skels.op_mask[..., None]  # (S, N, 1)
@@ -475,16 +482,57 @@ def apply_gnn_merged(
 
     # stage 3: banded levels; parents gathered, never contracted.  ``h`` is
     # this function's own tensor, so each level writes its span in place.
-    for d, (s, e), level_ranges, _ in plan.levels:
+    for d, (s, e), shifted in consts.levels:
         msg = seg_ops.gather_sum(h, row_pidx[:, s:e], row_pmask[:, s:e])
         z = torch.cat([h[..., s:e, :], msg], dim=-1)
-        shifted = tuple((t, a - s, b - s) for t, a, b in level_ranges)
         upd = _apply_bank(params["op_upd"], z, cfg, shifted)
         sel = ((depth_b[:, s:e] == d) & (op_mask_b[:, s:e, 0] > 0))[..., None]
         h[..., s:e, :] = torch.where(sel, upd, h[..., s:e, :])
 
     pooled = h.sum(dim=-2) + h_hw.sum(dim=-2)
     return nn.apply_mlp(params["out"], pooled)[..., 0]
+
+
+def apply_gnn_merged(
+    params: nn.Params,
+    skels: JointGraph,  # (S, N, .) stacked skeletons (``a_place`` ignored)
+    skel_id: torch.Tensor,  # (B,) int: row -> skeleton
+    a_place: torch.Tensor,  # (B, N, W) one-hot placement adjacency per row
+    cfg: GNNConfig,
+    banding: BatchBanding,
+    max_parents: int = 2,
+) -> torch.Tensor:
+    """ONE member-stacked forward over candidates of S DISTINCT structures.
+
+    The cross-query serving engine: a merged drain's rows reference their
+    structure through ``skel_id`` instead of materializing per-row skeleton
+    copies, and the graph's sparsity is static (every operator has at most
+    ``max_parents`` data-flow parents and exactly one host), so the
+    aggregations become index ops:
+
+      * stage 0 runs on the S skeletons only (every member reads the same
+        input, at member stride 0) and is gathered per row;
+      * stage 1 (OPS->HW) is a per-row ``segment_sum`` over each host's
+        operators;
+      * stage 2 (HW->OPS) is a ``gather_sum`` of each operator's one host
+        state (P = 1, the placed flag as weight);
+      * each stage-3 level is a ``gather_sum`` of the span rows'
+        ``max_parents`` parent states (per-skeleton parent tables from
+        ``a_flow``) and the banked update at the span.
+
+    Numerically equal to ``apply_gnn_stacked`` on the expanded broadcast
+    batch to float tolerance (same sums, another association).  The
+    aggregations run through ``kernels/seg_gather`` whatever ``use_pallas``
+    says; the banked MLPs follow ``use_pallas``.  ``banding`` must come from
+    ``bucketing.exact_banding_cached`` over ``skels``.  The in-degree bound is
+    checked here for CPU skeletons; on a GPU the check would wait for the
+    device, so the caller owns the bound there: the estimator derives
+    ``max_parents`` from its host stack's in-degrees.  Returns ``(E, B)`` raw
+    outputs.  It is ``merged_constants`` (what the stack alone decides: the
+    row trim, the parent tables, the levels) then ``apply_gnn_merged_rows``;
+    a caller that runs many forwards over one stack keeps the constants.
+    """
+    return apply_gnn_merged_rows(params, merged_constants(skels, banding, max_parents), skel_id, a_place, cfg)
 
 
 def apply_gnn_placed_members(

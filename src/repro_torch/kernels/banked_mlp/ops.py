@@ -102,7 +102,7 @@ def _launch(x, w1, b1, w2, b2, ranges) -> torch.Tensor:
         x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check("banked_mlp", err)
-    obs.count("banked_mlp_slotted.launches")
+    obs.launch("banked_mlp_slotted")
     return y
 
 

@@ -74,7 +74,7 @@ def _launch(h, a_flow, w1, b1, w2, b2, depth, mask, levels, strides) -> torch.Te
         E, B, N, H, H1, T, table, h.device.index, torch.cuda.current_stream(h.device).cuda_stream,
     )
     _build.check("mp_sweep", err)
-    obs.count("mp_sweep.launches")
+    obs.launch("mp_sweep")
     return out
 
 

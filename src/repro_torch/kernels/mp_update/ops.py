@@ -160,7 +160,7 @@ def _launch(h, a_flow, w1, b1, w2, b2, depth, mask, d, ranges, bounds, strides) 
         h.device.index, torch.cuda.current_stream(h.device).cuda_stream,
     )
     _build.check("mp_update", err)
-    obs.count("mp_update.launches")
+    obs.launch("mp_update")
     return out
 
 

@@ -96,7 +96,7 @@ def _launch(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> torch.Tensor:
         B, T, D, a.device.index, torch.cuda.current_stream(a.device).cuda_stream,
     )
     _build.check("linear_scan", err)
-    obs.count("linear_scan.launches")
+    obs.launch("linear_scan")
     return out
 
 

@@ -79,7 +79,7 @@ def _launch_gather(h, w, idx) -> torch.Tensor:
         out.data_ptr(), E, B, N, R, P, H, h.device.index, torch.cuda.current_stream(h.device).cuda_stream,
     )
     _build.check("gather_sum", err)
-    obs.count("gather_sum.launches")
+    obs.launch("gather_sum")
     return out
 
 
@@ -135,7 +135,7 @@ def _launch_segment(x, seg, n_seg: int) -> torch.Tensor:
         x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check("segment_sum", err)
-    obs.count("segment_sum.launches")
+    obs.launch("segment_sum")
     return out
 
 

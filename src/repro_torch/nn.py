@@ -245,16 +245,31 @@ def to_device(params, device: Optional[torch.device]) -> Params:
 Layout = Tuple[Tuple[int, int, torch.dtype, Tuple[int, ...]], ...]
 
 
-def _host_buffer(specs, pin: bool) -> Tuple[torch.Tensor, Layout]:
-    """An empty host buffer (page-locked when ``pin``) for arrays of ``(dtype,
-    shape)``, each 8-byte aligned so it views back: the buffer and each array's
-    ``(offset, bytes, dtype, shape)``."""
+def _layout(specs) -> Tuple[int, Layout]:
+    """Bytes of a buffer for arrays of ``(dtype, shape)``, each 8-byte aligned
+    so it views back, and each array's ``(offset, bytes, dtype, shape)``."""
     layout, off = [], 0
     for dtype, shape in specs:
         nbytes = np.dtype(dtype).itemsize * math.prod(shape)
         layout.append((off, nbytes, torch.from_numpy(np.empty(0, dtype)).dtype, tuple(shape)))
         off += -(-nbytes // 8) * 8
-    return torch.empty((max(off, 1),), dtype=torch.uint8, pin_memory=pin), tuple(layout)
+    return max(off, 1), tuple(layout)
+
+
+def _host_buffer(specs, pin: bool) -> Tuple[torch.Tensor, Layout]:
+    """An empty host buffer (page-locked when ``pin``) in ``_layout(specs)``:
+    the buffer and the layout."""
+    size, layout = _layout(specs)
+    return torch.empty((size,), dtype=torch.uint8, pin_memory=pin), layout
+
+
+def device_buffer(specs, device) -> Tuple[torch.Tensor, list]:
+    """An empty buffer on ``device`` in ``pack_host``'s layout for arrays of
+    ``(dtype, shape)``, and those arrays as views of it: a fixed target for
+    ``parts_to_device(..., into=)``."""
+    size, layout = _layout(specs)
+    buf = torch.empty((size,), dtype=torch.uint8, device=device)
+    return buf, unpack(buf, layout)
 
 
 def pack_host(arrays: Sequence[np.ndarray], pin: bool) -> Tuple[torch.Tensor, Layout]:
@@ -291,16 +306,22 @@ def _host_allocs() -> Tuple[int, int]:
     return stats.get("num_host_alloc", 0), stats.get("host_alloc_time", {}).get("total", 0)
 
 
-def _copy_pinned(sp, pack, device) -> Tuple[torch.Tensor, Layout, list]:
+def _copy_pinned(sp, pack, device, into: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Layout, list]:
     """``pack()``'s page-locked buffer and layout, and the layout's tensors on
-    ``device`` after ONE ``non_blocking`` copy.  The caching host allocator
-    records the copy on the stream and does not hand the buffer out again until
-    the copy has run, so the caller may drop the buffer.  Sets on the span
-    ``sp`` the blocks the allocator had to create (``pinned_allocs``,
-    ``pinned_alloc_us``)."""
+    ``device`` after ONE ``non_blocking`` copy, into a new device buffer or
+    into ``into``.  The caching host allocator records the copy on the stream
+    and does not hand the buffer out again until the copy has run, so the
+    caller may drop the buffer.  Sets on the span ``sp`` the blocks the
+    allocator had to create (``pinned_allocs``, ``pinned_alloc_us``)."""
     before = _host_allocs() if sp.on else None
     buf, layout = pack()
-    out = unpack(buf.to(device, non_blocking=True), layout)
+    if into is None:
+        out = unpack(buf.to(device, non_blocking=True), layout)
+    elif into.dtype != torch.uint8 or into.shape != buf.shape:
+        raise ValueError(f"into is {into.dtype} {tuple(into.shape)}, the layout needs uint8 "
+                         f"{tuple(buf.shape)} (nn.device_buffer of the same specs)")
+    else:
+        out = unpack(into.copy_(buf, non_blocking=True), layout)
     if sp.on:
         allocs, us = _host_allocs()
         sp.set(pinned_allocs=allocs - before[0], pinned_alloc_us=us - before[1])
@@ -325,20 +346,24 @@ def arrays_to_device(arrays: Sequence[np.ndarray], device) -> list:
         return out
 
 
-def parts_to_device(parts: Sequence[Sequence[np.ndarray]], device) -> Tuple[list, list]:
+def parts_to_device(
+    parts: Sequence[Sequence[np.ndarray]], device, into: Optional[torch.Tensor] = None
+) -> Tuple[list, list]:
     """Each field's parts joined along axis 0, on the host and on ``device``:
     written straight into one staging buffer (``pack_host_parts``, page-locked
     on a GPU, where ONE ``non_blocking`` copy follows), so the bytes are copied
     once on the host.  Returns the joined host arrays, views of that buffer,
-    and the tensors on ``device`` (on the CPU, views of the same buffer).
-    Traced as ``h2d.stage``, with ``arrays_to_device``'s attributes."""
+    and the tensors on ``device`` (on the CPU, views of the same buffer).  On
+    a GPU, ``into`` (a ``device_buffer`` of the joined fields' specs) takes
+    the copy, and the tensors on ``device`` are views of it.  Traced as
+    ``h2d.stage``, with ``arrays_to_device``'s attributes."""
     device = torch.device(device)
     with obs.span("h2d.stage") as sp:
         if device.type == "cpu":
             buf, layout = pack_host_parts(parts, pin=False)
             out = unpack(buf, layout)
         else:
-            buf, layout, out = _copy_pinned(sp, lambda: pack_host_parts(parts, pin=True), device)
+            buf, layout, out = _copy_pinned(sp, lambda: pack_host_parts(parts, pin=True), device, into)
         if sp.on:
             sp.set(bytes=sum(int(t.nbytes) for t in out))
         return [t.numpy() for t in unpack(buf, layout)], out

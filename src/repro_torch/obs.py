@@ -1,7 +1,8 @@
 """The port's one tracer: named host spans and integer counters.
 
 ``span(name, **attrs)`` times a piece of host work, ``count(name, n)`` adds
-to a counter; ``records()`` and ``counters()`` read them back.
+to a counter (``launch(kernel)`` to a kernel's launch counter); ``records()``
+and ``counters()`` read them back.
 
 Spans are on exactly while ``torch.profiler`` records, in every thread:
 the check reads the process-wide flag that ``torch.autograd.profiler`` sets
@@ -35,6 +36,7 @@ its span records (``span(...).on``).
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import threading
 import time
@@ -159,6 +161,32 @@ def count(name: str, n: int = 1) -> None:
     """Add ``n`` to the counter ``name`` (always on)."""
     with _counters_lock:
         _counters[name] = _counters.get(name, 0) + n
+
+
+def launch(kernel: str) -> None:
+    """Count one launch of ``kernel`` in ``<kernel>.launches``.  A launch
+    inside a CUDA graph's capture runs only when the graph replays: it goes
+    to this thread's open ``capture_tally`` instead, and is not counted at
+    all under a capture that keeps no tally."""
+    tally = getattr(_local, "tally", None)
+    if tally is not None:
+        name = kernel + ".launches"
+        tally[name] = tally.get(name, 0) + 1
+    elif not (torch.cuda.is_initialized() and torch.cuda.is_current_stream_capturing()):
+        count(kernel + ".launches")
+
+
+@contextlib.contextmanager
+def capture_tally():
+    """While open, this thread's kernel launches (``launch``) go to the
+    yielded dict of ``<kernel>.launches`` counts, not to the counters: a
+    graph's capture keeps the counts that each replay adds."""
+    tally: Dict[str, int] = {}
+    _local.tally = tally
+    try:
+        yield tally
+    finally:
+        _local.tally = None
 
 
 def records() -> Tuple[Record, ...]:

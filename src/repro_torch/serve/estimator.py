@@ -15,7 +15,10 @@ built from an in-memory model dict or a ``CostModelBundle``.  It owns
   ride ONE fused forward (one kernel launch per stage) when their GNN
   configs are shape-identical;
 * the per-drain-mix **merged-group LRU** of ``score_many``: the device
-  skeleton stack of a set of structures, its banding and its parent bound.
+  skeleton stack of a set of structures, its banding and its parent bound,
+  and on a GPU the stack's constants of the merged forward and the CUDA
+  graphs that replay it (``serve/graphs.py``), one per stacked ensemble and
+  row bucket, captured on first sight into one memory pool.
 
 PyTorch runs eagerly, so the JAX package's trace caches have no counterpart,
 and buffer donation none either (PyTorch frees a chunk's inputs when the last
@@ -41,8 +44,10 @@ the deferred ``estimator.finalize`` carries, and inside them the host work
 (``gnn.forward``, with its stage-3 row counts), the wait for the readback
 (``d2h.wait``; on a GPU with ``ready``, whether it had landed already) and the
 vote (``host.vote``).  The skeleton, merged-group and banding caches count
-their hits and misses (``cache.*``), and on a GPU each readback counts
-``d2h.ready`` or ``d2h.blocked``.
+their hits and misses (``cache.*``), as does the merged forward's graph
+cache (``cache.graph.*``; the ``gnn.forward`` span's ``graph`` attribute says
+how a chunk ran), and on a GPU each readback counts ``d2h.ready`` or
+``d2h.blocked``.
 """
 
 from __future__ import annotations
@@ -57,9 +62,11 @@ import torch
 
 from repro_torch import nn, obs
 from repro_torch.core.gnn import (
+    MergedConstants,
     apply_gnn_merged,
     apply_gnn_placed_members,
     apply_gnn_placed_stacked,
+    merged_constants,
 )
 from repro_torch.core.graph import (
     BatchBanding,
@@ -79,6 +86,7 @@ from repro_torch.core.graph import (
     skeleton_cache_key,
 )
 from repro_torch.core.model import CostModelConfig, forward_ensemble
+from repro_torch.serve.graphs import MergedGraph, row_bucket
 from repro_torch.serve.policy import DispatchPolicy, active_policy, resolve_policy
 from repro_torch.serve.stacking import (
     StackedEnsembles,
@@ -149,17 +157,19 @@ class _Readback(NamedTuple):
     done: torch.cuda.Event
 
 
-def _queue_host(raw: torch.Tensor):
+def _queue_host(raw: torch.Tensor, cols: Optional[int] = None):
     """``raw``'s readback, queued now: on a GPU a ``non_blocking`` copy into a
     page-locked host tensor behind the kernels that make ``raw``, and an event
-    after it; on the CPU ``raw`` itself, copied when ``_host`` reads it."""
+    after it; on the CPU ``raw`` itself, copied when ``_host`` reads it.
+    ``cols`` keeps the first ``cols`` entries of the last axis (a padded
+    forward's real rows): ``raw`` is copied whole, then viewed."""
     if raw.device.type != "cuda":
-        return raw
+        return raw if cols is None else raw[..., :cols]
     host = torch.empty(raw.shape, dtype=raw.dtype, pin_memory=True)
     host.copy_(raw, non_blocking=True)
     done = torch.cuda.Event()
     done.record(torch.cuda.current_stream(raw.device))
-    return _Readback(host, done)
+    return _Readback(host if cols is None else host[..., :cols], done)
 
 
 def _host(raw) -> np.ndarray:
@@ -188,6 +198,18 @@ def _real3(op_mask, op_depth) -> int:
 def _level_rows(banding: BatchBanding) -> int:
     """Rows one graph's stage-3 levels cover under ``banding``: the sum of the spans."""
     return sum(e - s for _, (s, e), _ in banding.levels)
+
+
+class _MergedGroup(NamedTuple):
+    """A drain mix's entry in the merged-group LRU (``_merged_group_for``)."""
+
+    index_of: Dict  # structure key -> skeleton index
+    skels: JointGraph  # the skeleton stack on the device
+    banding: BatchBanding
+    max_parents: int
+    real3: np.ndarray  # real rows at depth >= 1 per skeleton
+    consts: Optional[MergedConstants]  # on a GPU: the stack's constants of the merged forward
+    graphs: Dict[Tuple[int, int], MergedGraph]  # (id of the stacked ensemble, row bucket) -> graph
 
 
 def graphs_to_device(g: JointGraph, device) -> JointGraph:
@@ -303,9 +325,9 @@ class CostEstimator:
         self.policy = (policy if policy is not None else resolve_policy()).validate()
         self._skeletons: "OrderedDict[Tuple, Tuple[JointGraph, JointGraph, QueryStatic]]" = OrderedDict()
         self._stacked: Dict[Tuple[str, ...], Optional[StackedEnsembles]] = {}
-        # cross-query drain mixes: frozenset of structure keys -> (key ->
-        # skeleton index, device skeleton stack, banding, max_parents)
-        self._merged_groups: "OrderedDict[frozenset, Tuple]" = OrderedDict()
+        # cross-query drain mixes: frozenset of structure keys -> their entry
+        self._merged_groups: "OrderedDict[frozenset, _MergedGroup]" = OrderedDict()
+        self._graph_pool = None  # the one memory pool of the merged forward's CUDA graphs
         self._params: Dict[str, object] = {}  # metric -> params on self.device
         self._optimizer = None
         # fault-injection / observation hooks (serve.chaos): objects with
@@ -763,18 +785,17 @@ class CostEstimator:
         sp.set(n=n)
         self._before("score_many", n)
 
-        index_of, skels_dev, banding, max_parents, real3 = self._merged_group_for(requests, groups)
+        group = self._merged_group_for(requests, groups)
         with obs.span("host.a_place", rows=n):
             blocks, ids = [], []
             for key, idxs in groups.items():
                 q, c, _ = requests[idxs[0]]
                 block = build_a_place_batch(q, c, np.concatenate([mats[i] for i in idxs]))
                 blocks.append(block)
-                ids.append(np.full(len(block), index_of[key], dtype=np.int64))
+                ids.append(np.full(len(block), group.index_of[key], dtype=np.int64))
             skel_id, a_place = np.concatenate(ids), np.concatenate(blocks)
         pending = self._merged_placements_forward(
-            skels_dev, banding, max_parents, skel_id, a_place,
-            [len(b) for b in blocks], stacked, metrics, max_rows, deferred=True, real3=real3,
+            group, skel_id, a_place, [len(b) for b in blocks], stacked, metrics, max_rows, deferred=True,
         )
 
         def finalize() -> List[Dict[str, np.ndarray]]:
@@ -792,14 +813,17 @@ class CostEstimator:
 
         return self._finish("score_many", finalize, deferred)
 
-    def _merged_group_for(self, requests, groups) -> Tuple:
-        """(key -> skeleton index, device skeleton stack, banding,
-        max_parents, real rows at depth >= 1 per skeleton) for one drain mix.
+    def _merged_group_for(self, requests, groups) -> _MergedGroup:
+        """One drain mix's entry: key -> skeleton index, the device skeleton
+        stack, its banding, max_parents, the real rows at depth >= 1 per
+        skeleton, and on a GPU the stack's constants of the merged forward
+        and its CUDA graphs (none yet).
 
         Keyed on the *set* of structure keys (drains of one recurring mix may
         arrive in any order, so the index mapping is part of the entry); the
-        mix pays stacking, banding, the in-degree check and the skeleton
-        device copy once, in an LRU of ``policy.merged_group_cache_size``.
+        mix pays stacking, banding, the in-degree check, the skeleton device
+        copy and the constants once, in an LRU of
+        ``policy.merged_group_cache_size``, whose evictions drop the graphs.
         """
         with obs.span("host.group") as sp:
             mix_key = frozenset(groups)
@@ -817,7 +841,9 @@ class CostEstimator:
             banding = exact_banding_cached(skels)
             max_parents = int(np.asarray(skels.a_flow).sum(axis=-2).max(initial=1))
             real3 = np.count_nonzero((np.asarray(skels.op_mask) > 0) & (np.asarray(skels.op_depth) >= 1), axis=-1)
-            entry = (index_of, graphs_to_device(skels, self.device), banding, max_parents, real3)
+            skels_dev = graphs_to_device(skels, self.device)
+            consts = merged_constants(skels_dev, banding, max_parents) if self.device.type == "cuda" else None
+            entry = _MergedGroup(index_of, skels_dev, banding, max_parents, real3, consts, {})
             self._merged_groups[mix_key] = entry
             while len(self._merged_groups) > self.policy.merged_group_cache_size:
                 self._merged_groups.popitem(last=False)
@@ -825,9 +851,7 @@ class CostEstimator:
 
     def _merged_placements_forward(
         self,
-        skels_dev: JointGraph,
-        banding: BatchBanding,
-        max_parents: int,
+        group: _MergedGroup,
         skel_id: np.ndarray,
         a_place: np.ndarray,
         sizes: Sequence[int],
@@ -835,31 +859,62 @@ class CostEstimator:
         metrics: Tuple[str, ...],
         max_rows: Optional[int],
         deferred: bool = False,
-        real3: Optional[np.ndarray] = None,
     ) -> List[Dict[str, np.ndarray]]:
-        """Chunked ``apply_gnn_merged`` over a structure-major placement batch.
+        """The merged forward over a structure-major placement batch, one per
+        ``max_rows`` chunk, each queued on the device with its readback right
+        behind it before the host waits on any.
 
-        The rows go to the device in one copy; each ``max_rows`` chunk (not
-        bucket-padded, as in ``_merged_forward``) is queued on the device,
-        with its readback right behind it, before the host waits on any.
-        ``real3`` holds each skeleton's real rows at depth 1 or more, for the
-        forward span's row counts.
+        On a GPU each chunk runs at its row bucket (``graphs.row_bucket``):
+        its rows, padded, go to the static inputs of the group's graph for
+        this ensemble and bucket in one copy, and the graph is replayed
+        (captured on first sight; ``graphs.MergedGraph``); only the real
+        rows are read back.  On the CPU the rows go to the device in one
+        copy and each chunk runs ``apply_gnn_merged`` unpadded.
         """
         total = int(a_place.shape[0])
         step = max_rows if max_rows else total
-        skel_id_dev, a_place_dev = nn.arrays_to_device([skel_id, a_place], self.device)
+        if group.consts is None:
+            skel_id_dev, a_place_dev = nn.arrays_to_device([skel_id, a_place], self.device)
         launched = []  # each chunk's readback (``_queue_host``)
         for s in range(0, total, step):
+            rows = skel_id[s : s + step]
+            graph = None
+            if group.consts is not None:
+                graph = self._merged_graph(group, stacked, row_bucket(len(rows)), a_place.shape[1:])
+                graph.stage(rows, a_place[s : s + step])
             with torch.no_grad(), obs.span("gnn.forward") as fw:
-                if fw.on and real3 is not None:  # the banded plan over the skeletons' rows
-                    rows = skel_id[s : s + step]
-                    fw.set(rows3=len(rows) * _level_rows(banding), real3=int(real3[rows].sum()))
-                raw = apply_gnn_merged(
-                    stacked.params, skels_dev, skel_id_dev[s : s + step], a_place_dev[s : s + step],
-                    stacked.cfgs[0].gnn, banding, max_parents,
-                )
-            launched.append(_queue_host(raw))
+                if graph is not None:
+                    raw, how = graph.run(self._graph_pool)
+                else:
+                    how = "eager"
+                    raw = apply_gnn_merged(
+                        stacked.params, group.skels, skel_id_dev[s : s + step], a_place_dev[s : s + step],
+                        stacked.cfgs[0].gnn, group.banding, group.max_parents,
+                    )
+                if fw.on:  # the banded plan over the skeletons' rows, pad rows included
+                    fw.set(rows3=int(raw.shape[-1]) * _level_rows(group.banding),
+                           real3=int(group.real3[rows].sum()), graph=how)
+            launched.append(_queue_host(raw, len(rows)))
         return _maybe_defer(lambda: self._split_back(launched, stacked, metrics, sizes), deferred)
+
+    def _merged_graph(self, group: _MergedGroup, stacked: StackedEnsembles, rows: int, place_shape) -> MergedGraph:
+        """The group's graph for ``stacked`` at ``rows``, made on first sight
+        (``cache.graph.miss``; its first run captures it).  A graph is keyed
+        on the stacked ensemble object it reads, so a new stack never replays
+        an old one's weights; making one drops the group's graphs of stacks
+        the estimator no longer holds."""
+        key = (id(stacked), rows)  # the graph holds ``stacked``, so its id stays unique
+        graph = group.graphs.get(key)
+        if graph is not None:
+            return graph
+        obs.count("cache.graph.miss")
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        live = {id(x) for x in self._stacked.values() if x is not None}
+        for k in [k for k, g in group.graphs.items() if id(g.stacked) not in live]:
+            del group.graphs[k]
+        graph = group.graphs[key] = MergedGraph(stacked, group.consts, rows, tuple(place_shape), self.device)
+        return graph
 
     def optimize(self, query, cluster, target_metric: str = "latency_p", **kwargs):
         """Cost-based placement search (paper SV): sample -> score -> argopt.

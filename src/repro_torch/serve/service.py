@@ -79,6 +79,7 @@ from repro_torch import obs
 from repro_torch.core.bucketing import bucket_size
 from repro_torch.core.graph import JointGraph, skeleton_cache_key
 from repro_torch.serve.estimator import CostEstimator, NonFiniteEstimate
+from repro_torch.serve.graphs import ROW_BUCKET, row_bucket
 from repro_torch.serve.lifecycle import CircuitBreaker, fallback_scores
 from repro_torch.serve.policy import DispatchPolicy
 
@@ -431,12 +432,14 @@ class PlacementService:
         can hit — which caches the skeletons, builds the kernels at first
         use and warms the allocator.  When cross-query merging applies,
         additionally registers the full structure mix in the merged-mix set
-        and runs the merged drain at every row bucket up to
-        ``bucket_size(len(structures) * max_cands)`` (capped by
-        ``max_batch``).  Dummy all-zero assignments are used — the work
-        depends on shapes and structure, never on values.  Returns the number
-        of warm forwards issued; the count is bounded by ``O(len(structures)
-        * log(max_cands))``, never by traffic.
+        and runs the merged drain once at every row bucket (a multiple of
+        ``graphs.ROW_BUCKET``) up to ``bucket_size(len(structures) *
+        max_cands)`` (capped by ``max_batch``), so every merged chunk of the
+        mix up to that size replays a CUDA graph captured here on a GPU.
+        Dummy all-zero assignments are used — the work depends on shapes and
+        structure, never on values.  Returns the number of warm forwards
+        issued; the count is bounded by ``O(len(structures) *
+        log(max_cands) + max_batch / ROW_BUCKET)``, never by traffic.
         """
         structures = list(structures)
         metrics = tuple(metrics) if metrics is not None else tuple(self.estimator.models)
@@ -461,10 +464,11 @@ class PlacementService:
                 self._known_mixes[mix] = True
             n_structures = len(structures)
             top = min(bucket_size(n_structures * max_cands), self.max_batch)
-            b = bucket_size(n_structures)
+            b = n_structures
             while True:
-                # exactly b total rows distributed over every structure, so
-                # the merged chunk pads to exactly this power-of-two bucket
+                # b total rows spread over every structure: one merged chunk
+                # at the row bucket of b (graphs.row_bucket), whose CUDA
+                # graph this captures on a GPU
                 base, extra = divmod(b, n_structures)
                 items = [
                     (q, c, np.zeros((base + (1 if j < extra else 0), q.n_ops()), dtype=np.int64))
@@ -472,9 +476,9 @@ class PlacementService:
                 ]
                 self.estimator.score_many(items, metrics, max_rows=self.max_batch)
                 n_forwards += 1
-                if b >= top:
+                if row_bucket(b) >= top:
                     break
-                b *= 2
+                b = min(row_bucket(b) + ROW_BUCKET, top)
         self._warmed = True
         return n_forwards
 

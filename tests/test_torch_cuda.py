@@ -608,6 +608,174 @@ def test_estimate_many_staging_survives_queued_calls(cuda):
                 assert np.array_equal(part[m], ref[m]), m
 
 
+def _score_requests(seed: int, n: int, kinds=("linear", "two_way", "three_way", "two_way")):
+    """Four (query, cluster, assignments) requests of ``n`` candidates each, one fixed structure mix."""
+    work = WorkloadGenerator(seed=31)
+    pairs = [(work.query(kind=k, name=f"g{i}"), work.cluster(4 + i)) for i, k in enumerate(kinds)]
+    rng = np.random.default_rng(seed)
+    return [(q, c, sample_assignment_matrix(q, c, n, rng)) for q, c in pairs]
+
+
+def _graph_counts():
+    return tuple(obs.counters().get(f"cache.graph.{k}", 0) for k in ("miss", "hit"))
+
+
+def _same(got, want):
+    return all(np.array_equal(g[m], w[m]) for g, w in zip(got, want) for m in w)
+
+
+@pytest.mark.gpu
+def test_merged_graph_replay_matches_eager_bitwise(cuda):
+    """``score_many`` captures its merged forward on the first call of a structure mix and row
+    bucket and replays it after: the replay's output equals the eager forward over the same
+    static inputs (the padded shape) bit for bit, the answers of the capture call (eager) and of
+    the replay equal, a replay counts the captured kernels' launches, and the ``gnn.forward``
+    span says ``graph="hit"`` with the pad rows in ``rows3``."""
+    est = CostEstimator(_five_metric_models())
+    reqs = _score_requests(0, 50)
+    kernels = ("banked_mlp_slotted", "gather_sum", "segment_sum")
+    before = [_launches(k) for k in kernels]
+    first = est.score_many(reqs)
+    eager_launches = [_launches(k) - b for k, b in zip(kernels, before)]
+    before = [_launches(k) for k in kernels]
+    with profile(activities=[ProfilerActivity.CPU]):
+        again = est.score_many(reqs)
+    assert [_launches(k) - b for k, b in zip(kernels, before)] == eager_launches
+    assert eager_launches[2] == 1 and eager_launches[1] > 1
+    assert _same(again, first)
+    fw = [r.attrs for r in obs.records() if r.name == "gnn.forward"]
+    (group,) = est._merged_groups.values()
+    (graph,) = group.graphs.values()
+    assert graph.rows == 256 and [a["graph"] for a in fw] == ["hit"]
+    assert fw[0]["rows3"] == 256 * sum(e - s for _, (s, e), _ in group.banding.levels)
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        want = graph.forward()
+        graph.graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(graph.out, want)
+
+
+@pytest.mark.gpu
+def test_graph_cache_misses_once_per_group_and_bucket(cuda):
+    """One ``cache.graph.miss`` per (structure mix, row bucket) on first sight, then only hits:
+    two buckets of one mix (200 and 400 candidates: 256 and 512 rows) and a second mix."""
+    est = CostEstimator(_five_metric_models())
+    small, large = _score_requests(1, 50), _score_requests(2, 100)
+    other = _score_requests(3, 50, kinds=("three_way", "linear", "linear", "three_way"))
+    seen = []
+    for reqs in (small, small, large, small, large, other, other, large):
+        before = _graph_counts()
+        est.score_many(reqs)
+        seen.append(tuple(a - b for a, b in zip(_graph_counts(), before)))
+    assert seen == [(1, 0), (0, 1), (1, 0), (0, 1), (0, 1), (1, 0), (0, 1), (0, 1)]
+    assert sorted(g.rows for grp in est._merged_groups.values() for g in grp.graphs.values()) == [256, 256, 512]
+
+
+@pytest.mark.gpu
+def test_queued_score_many_calls_on_one_graph_read_their_own_answers(cuda):
+    """Three deferred ``score_many`` calls on one graph (one mix, one bucket, other candidates),
+    queued behind a 100-ms spin so none has run when the next stages its rows, then finished in
+    order: each equals, bitwise, the same call made alone afterwards.  Stream order keeps each
+    call's inputs behind the earlier replay and its readback ahead of the later one."""
+    est = CostEstimator(_five_metric_models())
+    calls = [_score_requests(10 + i, 50) for i in range(3)]
+    est.score_many(calls[0])  # captures the graph
+    spin = _spin_cycles(100.0)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(spin)
+    before = _graph_counts()
+    pending = [est.score_many(reqs, deferred=True) for reqs in calls]
+    got = [p.result() for p in pending]
+    assert _graph_counts() == (before[0], before[1] + 3)
+    want = [est.score_many(reqs) for reqs in calls]
+    assert not _same(want[0], want[1]) and not _same(want[1], want[2])
+    for g_, w_ in zip(got, want):
+        assert _same(g_, w_)
+
+
+@pytest.mark.gpu
+def test_a_swapped_stacked_ensemble_is_never_replayed_by_an_old_graph(cuda):
+    """Replacing the estimator's stacked ensemble (every weight x 1.25) changes ``score_many``'s
+    answers: the graph is keyed on the stack it read, so the new stack misses and captures its own
+    (the old one is dropped), and the answers equal, bitwise, those of a new estimator built over
+    the scaled weights."""
+    models = _five_metric_models()
+    scaled = {m: (nn.tree_map(lambda t: t * 1.25, p), cfg) for m, (p, cfg) in models.items()}
+    est, fresh = CostEstimator(models), CostEstimator(scaled)
+    reqs = _score_requests(4, 50)
+    metrics = tuple(models)
+    est.score_many(reqs)
+    old = est.score_many(reqs)
+    st = est._stacked_for(metrics)
+    est._stacked[metrics] = st._replace(params=nn.tree_map(lambda t: t * 1.25, st.params))
+    before = _graph_counts()
+    new = est.score_many(reqs)
+    assert _graph_counts() == (before[0] + 1, before[1])
+    again = est.score_many(reqs)
+    assert _graph_counts() == (before[0] + 1, before[1] + 1)
+    (group,) = est._merged_groups.values()
+    (graph,) = group.graphs.values()
+    assert graph.stacked is est._stacked[metrics]
+    assert not _same(new, old)
+    want = fresh.score_many(reqs)
+    assert _same(new, want) and _same(again, want)
+
+
+@pytest.mark.gpu
+def test_a_failed_capture_runs_eager_and_is_counted(cuda, monkeypatch):
+    """A capture that fails (``torch.cuda.graph`` raising a RuntimeError) counts
+    ``cache.graph.failed`` once and leaves its mix and bucket eager: every call then runs the
+    forward eagerly (``graph="eager"``, each launch counted once) with the answers of an estimator
+    whose capture worked.  Running out of device memory in the capture is raised."""
+    reqs = _score_requests(5, 50)
+    want = CostEstimator(_five_metric_models()).score_many(reqs)
+
+    def refuse(*args, **kwargs):
+        raise RuntimeError("capture refused")
+
+    monkeypatch.setattr(torch.cuda, "graph", refuse)
+    est = CostEstimator(_five_metric_models())
+    failed = obs.counters().get("cache.graph.failed", 0)
+    first = est.score_many(reqs)
+    assert obs.counters().get("cache.graph.failed", 0) == failed + 1
+    before = _graph_counts(), _launches("segment_sum")
+    with profile(activities=[ProfilerActivity.CPU]):
+        again = est.score_many(reqs)
+    assert (_graph_counts(), _launches("segment_sum")) == (before[0], before[1] + 1)
+    assert [r.attrs["graph"] for r in obs.records() if r.name == "gnn.forward"] == ["eager"]
+    assert obs.counters().get("cache.graph.failed", 0) == failed + 1
+    (group,) = est._merged_groups.values()
+    (graph,) = group.graphs.values()
+    assert graph.failed and graph.graph is None and graph.launches == {}
+    assert _same(first, want) and _same(again, want)
+
+    def out_of_memory(*args, **kwargs):
+        raise torch.OutOfMemoryError("CUDA out of memory")
+
+    monkeypatch.setattr(torch.cuda, "graph", out_of_memory)
+    with pytest.raises(torch.OutOfMemoryError):
+        CostEstimator(_five_metric_models()).score_many(reqs)
+    assert obs.counters().get("cache.graph.failed", 0) == failed + 1
+
+
+@pytest.mark.gpu
+def test_parts_land_in_a_device_buffer(cuda):
+    """``parts_to_device(..., into=)`` writes the joined parts into a ``device_buffer`` of their
+    layout, whose views then hold them; a buffer of another layout is refused."""
+    from repro_torch.serve import graphs
+
+    sid, ap = np.arange(5, dtype=np.int64), np.random.default_rng(0).random((5, 3, 2)).astype(np.float32)
+    buf, (sid_d, ap_d) = nn.device_buffer([(np.int64, (8,)), (np.float32, (8, 3, 2))], "cuda")
+    _, out = nn.parts_to_device(graphs.padded_parts(sid, ap, 8), "cuda", into=buf)
+    assert out[0].data_ptr() == sid_d.data_ptr() and out[1].data_ptr() == ap_d.data_ptr()
+    assert np.array_equal(sid_d.cpu().numpy(), np.r_[sid, 0, 0, 0])
+    assert np.array_equal(ap_d.cpu().numpy()[:5], ap) and not ap_d.cpu().numpy()[5:].any()
+    small, _ = nn.device_buffer([(np.int64, (8,)), (np.float32, (7, 3, 2))], "cuda")
+    with pytest.raises(ValueError, match="layout"):
+        nn.parts_to_device(graphs.padded_parts(sid, ap, 8), "cuda", into=small)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize(
     "B,T,D,h0_slice,near_one",

@@ -347,7 +347,8 @@ def test_seg_gather_calls_per_merged_forward(n_ensemble, monkeypatch):
         q, c = gen.query(kind=k, name=f"c{i}"), gen.cluster(4)
         reqs.append((q, c, sample_assignment_matrix(q, c, 5, np.random.default_rng(i))))
     est.score_many(reqs)  # warm the merged group
-    (_, _, band, _, _), = est._merged_groups.values()
+    (group,) = est._merged_groups.values()
+    band = group.banding
     counts = _count_calls(monkeypatch)
     est.score_many(reqs)
     levels = len(band.levels)

@@ -104,7 +104,7 @@ TREES = {
     ],
     "score_many": [
         ("estimator.score_many", (_leaf("host.keys"), _leaf("host.group"), _leaf("host.a_place"), STAGE,
-                                  (FORWARD, (STAGE, STAGE)))),
+                                  (FORWARD, (STAGE,)))),
         ("estimator.finalize", (WAIT, VOTE, VOTE, VOTE, VOTE)),
     ],
     "score": [
@@ -298,3 +298,19 @@ def test_the_cpu_readback_queues_nothing(setup):
     assert _d2h_moved(before) == {"d2h.ready": 0, "d2h.blocked": 0}
     waits = [r.attrs for r in records if r.name == "d2h.wait"]
     assert waits and all(set(a) == {"bytes"} for a in waits)
+
+
+def test_launches_in_a_capture_tally_stay_out_of_the_counters():
+    """A launch inside this thread's ``capture_tally`` goes to the tally and not to the
+    ``<kernel>.launches`` counter; a launch on another thread meanwhile, and one after the tally
+    closes, are counted."""
+    before = obs.counters().get("tally_probe.launches", 0)
+    with obs.capture_tally() as tally:
+        obs.launch("tally_probe")
+        other = threading.Thread(target=obs.launch, args=("tally_probe",))
+        other.start()
+        other.join(timeout=60)
+        obs.launch("tally_probe")
+    obs.launch("tally_probe")
+    assert tally == {"tally_probe.launches": 2}
+    assert obs.counters()["tally_probe.launches"] - before == 2
