@@ -349,9 +349,10 @@ def service_phase(bundle, reload_bundle, counted, device_split, card):
                 g = graphs_to_device(p, e.device)
                 return {m: forward_ensemble(e._params_for(m), g, e.config(m)).cpu().numpy() for m in ms}
             q, c, a = p
-            skel = graphs_to_device(build_graph_skeleton(q, c), e.device)
+            host = build_graph_skeleton(q, c)
+            skel, n_hw = graphs_to_device(host, e.device), int(host.hw_mask.sum())
             ap = torch.as_tensor(build_a_place_batch(q, c, a), device=e.device)
-            return {m: gnn.apply_gnn_placed_members(e._params_for(m), skel, ap, query_static(q), e.config(m).gnn)[..., 0]
+            return {m: gnn.apply_gnn_placed_stacked(e._params_for(m), skel, ap, query_static(q), e.config(m).gnn, n_hw)
                     .cpu().numpy() for m in ms}
 
     def agree(what, got, want, r, e):
@@ -2536,11 +2537,12 @@ def main() -> int:
                     for m in CLASSIFICATION_METRICS}
 
     def placed_logits(q, c, a, device):
-        skel_d = graphs_to_device(build_graph_skeleton(q, c), device)
+        host = build_graph_skeleton(q, c)
+        skel_d, n_hw = graphs_to_device(host, device), int(host.hw_mask.sum())
         ap = torch.as_tensor(build_a_place_batch(q, c, a), device=device)
         with torch.no_grad():
-            return {m: gnn.apply_gnn_placed_members(nn.to_device(models[m][0], device), skel_d, ap,
-                                                    query_static(q), models[m][1].gnn)[..., 0].cpu().numpy()
+            return {m: gnn.apply_gnn_placed_stacked(nn.to_device(models[m][0], device), skel_d, ap,
+                                                    query_static(q), models[m][1].gnn, n_hw).cpu().numpy()
                     for m in CLASSIFICATION_METRICS}
 
     def device_split(fn):

@@ -19,14 +19,16 @@ shape ``(E, B, N, H)``, where the JAX package ran one member's forward under
 
 ``GNNConfig.use_pallas`` keeps its name and meaning (bundles carry it): it
 routes the banked MLPs of stages 0-2 through ``kernels/banked_mlp`` and the
-stage-3 sweep through ``kernels/mp_update`` (``scan``, ``exact``) or
-``kernels/mp_sweep`` (``sweep``), exactly where the JAX package routes them
-through its Pallas kernels; configs the kernels cannot fuse raise.  ``False``
-runs the plain PyTorch formulation of the JAX package's jnp branch.  The
-Exp-7b ablation ``apply_gnn_traditional`` runs all its MLPs through
-``kernels/banked_mlp`` under ``use_pallas``.  The
-cross-query merged engine (``apply_gnn_merged``) runs its aggregations
-through ``kernels/seg_gather`` whatever ``use_pallas`` says, as in JAX.
+stage-3 walk over a ``StagePlan``'s levels through ``kernels/mp_update``
+(one launch per level: the scan, the placed forward) or ``kernels/mp_sweep``
+(a banding's whole table in one launch), exactly where the JAX package routes
+them through its Pallas kernels; configs the kernels cannot fuse raise.
+``False`` runs the same levels through the kernels' plain versions
+(``mp_sweep_ref``), the plain PyTorch formulation of the JAX package's jnp
+branch.  The Exp-7b ablation ``apply_gnn_traditional`` runs all its MLPs
+through ``kernels/banked_mlp`` under ``use_pallas``.  The cross-query merged
+engine (``apply_gnn_merged``) runs its aggregations through
+``kernels/seg_gather`` whatever ``use_pallas`` says, as in JAX.
 """
 
 from __future__ import annotations
@@ -50,7 +52,6 @@ from repro_torch.kernels.banked_mlp import ops as bank_ops
 from repro_torch.kernels.mp_sweep import ops as sweep_ops
 from repro_torch.kernels.mp_sweep.ref import mp_sweep_ref
 from repro_torch.kernels.mp_update import ops as mp_ops
-from repro_torch.kernels.mp_update.ref import mp_update_ref
 from repro_torch.kernels.seg_gather import ops as seg_ops
 
 
@@ -127,27 +128,23 @@ def _apply_shared(params, x, cfg: GNNConfig, what: str):
 
 
 class StagePlan(NamedTuple):
-    """Static description of the stage-3 data-flow sweep.
+    """Static description of the stage-3 data-flow walk: its levels, in order.
 
-    ``kind``:
-      * ``"scan"``   — depths ``1..depth_max``, full row width, dynamic
-        depth-select (generic batches without banding);
-      * ``"sweep"``  — all of ``levels`` in one fused ``mp_sweep`` launch
-        (the plain path runs the same levels one by one);
-      * ``"banded"`` — unrolled over ``levels``; each level runs at its
-        ``row_span`` with a ``parent_rows`` contraction bound;
-      * ``"exact"``  — the placement-specialized sweep: the plain path
-        unrolls ``updates`` (per level, the exact ``(row, type,
-        parent_rows)`` tuples), the kernel path walks ``levels``.
+    Each entry of ``levels`` is ``(d, row_span | None, slot_ranges,
+    parent_rows | None)`` with absolute row indices: the depth-``d`` step
+    over the rows ``row_span`` (every row when None), whose ``slot_ranges``
+    tile the span, aggregating parents among the first ``parent_rows`` rows
+    (every row when None).  The full-depth scan is the plan whose levels are
+    ``(d, None, ranges, None)`` for d = 1..``max_depth``; a banding's plan
+    and the placed forward's plan are the levels they carry.
 
-    ``levels`` entries are ``(d, row_span | None, slot_ranges, parent_rows |
-    None)`` with absolute row indices; ``slot_ranges`` must tile the span.
+    ``fused`` sends the whole table to one ``mp_sweep`` launch under
+    ``use_pallas``; otherwise each level is one ``mp_update`` launch.  The
+    plain route walks the levels one by one either way.
     """
 
-    kind: str
-    depth_max: int = 0
-    levels: Tuple = ()
-    updates: Tuple = ()
+    levels: Tuple
+    fused: bool = False
 
 
 def _clip_ranges(ranges, start: int, stop: int):
@@ -160,28 +157,18 @@ def _clip_ranges(ranges, start: int, stop: int):
     return tuple(out)
 
 
-def _banded_plan(banding: BatchBanding, ranges=SLOT_RANGES, kind: str = "banded") -> StagePlan:
+def _banded_plan(banding: BatchBanding, ranges=SLOT_RANGES, fused: bool = False) -> StagePlan:
     return StagePlan(
-        kind,
-        levels=tuple(
-            (d, span, _clip_ranges(ranges, *span), p) for d, span, p in banding.levels
-        ),
+        tuple((d, span, _clip_ranges(ranges, *span), p) for d, span, p in banding.levels), fused
     )
 
 
-def _sweep_fusable(params: nn.Params) -> bool:
-    """The fused sweep handles exactly 2-layer banks."""
-    return len(params["op_upd"]["layers"]) == 2
+def _dataflow_sweep(params, h, a_flow, op_depth, op_mask, cfg: GNNConfig, plan: StagePlan):
+    """Stage 3: SOURCES->OPS along the data flow, one walk over ``plan.levels``.
 
-
-def _bank_member(p: nn.Params, t: int) -> nn.Params:
-    """One type's MLP out of a bank with a leading member axis: w (E, T, F, H)."""
-    return {"layers": [{"w": l["w"][:, t], "b": l["b"][:, t]} for l in p["layers"]]}
-
-
-def _dataflow_sweep(params, h, a_flow, op_depth, op_mask, cfg: GNNConfig, ranges, plan: StagePlan):
-    """Stage 3: SOURCES->OPS along the data flow, per the plan.
-
+    Under ``use_pallas`` a fused plan is one ``mp_sweep`` launch and any
+    other plan one ``mp_update`` launch per level; the plain route is
+    ``mp_sweep_ref``, the same levels one ``mp_update_ref`` step at a time.
     ``h`` is ``(E, B, N, H)``; ``a_flow`` is ``(B, N, N)`` or the shared
     ``(N, N)``; ``op_depth`` ``(B, N)`` or ``(N,)``; ``op_mask`` ``(B, N, 1)``
     or None when no row is padded.
@@ -191,57 +178,18 @@ def _dataflow_sweep(params, h, a_flow, op_depth, op_mask, cfg: GNNConfig, ranges
         if op_mask is not None
         else torch.ones(op_depth.shape, dtype=torch.float32, device=h.device)
     )
-    if plan.kind == "sweep":
-        if cfg.use_pallas:
-            # the whole banding table in ONE kernel launch (vs one per level)
-            _require_fusable(params["op_upd"], "op_upd (stage-3 mp_sweep)")
-            return sweep_ops.mp_sweep(params["op_upd"], h, a_flow, op_depth, mask_vec, plan.levels)
-        return mp_sweep_ref(
-            params["op_upd"], h, a_flow, op_depth, mask_vec, plan.levels, apply_fn=nn.apply_mlp_bank_slotted
+    bank = params["op_upd"]
+    if not cfg.use_pallas:
+        return mp_sweep_ref(bank, h, a_flow, op_depth, mask_vec, plan.levels, apply_fn=nn.apply_mlp_bank_slotted)
+    if plan.fused:
+        # the whole table in ONE kernel launch (vs one per level)
+        _require_fusable(bank, "op_upd (stage-3 mp_sweep)")
+        return sweep_ops.mp_sweep(bank, h, a_flow, op_depth, mask_vec, plan.levels)
+    _require_fusable(bank, "op_upd (stage-3 mp_update)")
+    for d, span, level_ranges, parent_hi in plan.levels:
+        h = mp_ops.mp_update(
+            bank, h, a_flow, op_depth, mask_vec, d, level_ranges, row_span=span, parent_rows=parent_hi
         )
-    if cfg.use_pallas:
-        _require_fusable(params["op_upd"], "op_upd (stage-3 mp_update)")
-        if plan.kind == "scan":
-            for d in range(1, plan.depth_max + 1):
-                h = mp_ops.mp_update(params["op_upd"], h, a_flow, op_depth, mask_vec, d, ranges)
-            return h
-        for d, span, level_ranges, parent_hi in plan.levels:
-            h = mp_ops.mp_update(
-                params["op_upd"], h, a_flow, op_depth, mask_vec, d, level_ranges,
-                row_span=span, parent_rows=parent_hi,
-            )
-        return h
-
-    if plan.kind == "scan":
-        sel_mask = None if op_mask is None else op_mask[..., 0] > 0
-        for d in range(1, plan.depth_max + 1):
-            msg = a_flow.transpose(-1, -2) @ h  # msg[v] = sum over parents u
-            upd = _apply_bank(params["op_upd"], torch.cat([h, msg], dim=-1), cfg, ranges)
-            sel = op_depth == d
-            if sel_mask is not None:
-                sel = sel & sel_mask
-            h = torch.where(sel[..., None], upd, h)
-        return h
-    if plan.kind == "banded":
-        for d, span, level_ranges, parent_hi in plan.levels:
-            h = mp_update_ref(
-                params["op_upd"], h, a_flow, op_depth, mask_vec, d, level_ranges,
-                row_span=span, parent_rows=parent_hi, apply_fn=nn.apply_mlp_bank_slotted,
-            )
-        return h
-    if plan.kind != "exact":
-        raise ValueError(f"unknown StagePlan kind {plan.kind!r}")
-    for level in plan.updates:
-        if not level:
-            continue
-        cols = [s for s, _, _ in level]
-        news = []
-        for s, t, parents in level:
-            msg = sum(h[..., p, :] for p in parents[1:]) + h[..., parents[0], :]
-            x = torch.cat([h[..., s, :], msg], dim=-1)  # (E, B, 2H)
-            news.append(nn.apply_mlp(_bank_member(params["op_upd"], t), x))
-        idx = nn.index_tensor(cols, h.device)
-        h = h.index_copy(h.ndim - 2, idx, torch.stack(news, dim=-2))
     return h
 
 
@@ -281,7 +229,7 @@ def _stages123(
         h = h * op_mask
 
     # stage 3: data-flow sweep per the plan
-    h = _dataflow_sweep(params, h, a_flow, op_depth, op_mask, cfg, ranges, plan)
+    h = _dataflow_sweep(params, h, a_flow, op_depth, op_mask, cfg, plan)
 
     # readout: rows are pre-masked, sum over the node axes
     pooled = h.sum(dim=-2) + h_hw.sum(dim=-2)
@@ -324,11 +272,10 @@ def _batch_forward(params, g: JointGraph, cfg: GNNConfig, banding: Optional[Batc
     hw_mask = g.hw_mask[..., None]
     h_ops0 = _apply_bank(params["op_enc"], g.op_x.expand(E, *g.op_x.shape), cfg, ranges) * op_mask
     h_hw0 = _apply_shared(params["hw_enc"], g.hw_x.expand(E, *g.hw_x.shape), cfg, "hw_enc") * hw_mask
-    plan = (
-        StagePlan("scan", depth_max=cfg.max_depth)
-        if banding is None
-        else _banded_plan(banding, ranges, kind="sweep" if _sweep_fusable(params) else "banded")
-    )
+    if banding is None:  # the full-depth scan: every level over every row
+        plan = StagePlan(tuple((d, None, ranges, None) for d in range(1, cfg.max_depth + 1)))
+    else:
+        plan = _banded_plan(banding, ranges, fused=True)
     out = _stages123(
         params, h_ops0, h_hw0, g.a_place, g.a_flow, g.op_depth, cfg,
         ranges=ranges, plan=plan, op_mask=op_mask, hw_mask=hw_mask,
@@ -345,10 +292,10 @@ def apply_gnn_batch(
     """One member's forward for a padded graph (batch) -> (..., n_outputs).
 
     ``banding=None`` runs the full ``max_depth`` scan.  A banding (from
-    ``bucketing.batch_banding`` / ``exact_banding``) selects the fused
-    ``sweep`` plan: one ``mp_sweep`` call for the whole table (update banks
-    that are not 2-layer take the per-level ``banded`` loop); a banding with
-    a row trim runs every stage on its trimmed layout.
+    ``bucketing.batch_banding`` / ``exact_banding``) runs its levels as a
+    fused plan: one ``mp_sweep`` launch for the whole table under
+    ``use_pallas``; a banding with a row trim runs every stage on its
+    trimmed layout.
     """
     return _batch_forward(nn.members(params), g, cfg, banding)[0]
 
@@ -535,36 +482,6 @@ def apply_gnn_merged(
     return apply_gnn_merged_rows(params, merged_constants(skels, banding, max_parents), skel_id, a_place, cfg)
 
 
-def apply_gnn_placed_members(
-    params: nn.Params,
-    skel: JointGraph,
-    a_place: torch.Tensor,
-    static: QueryStatic,
-    cfg: GNNConfig,
-) -> torch.Tensor:
-    """``apply_gnn_placed`` for member-stacked params -> (E, B, n_outputs)."""
-    E = _n_members(params)
-    op_mask = skel.op_mask[:, None]  # (O, 1)
-    hw_mask = skel.hw_mask[:, None]  # (W, 1)
-
-    # stage 0: shared across candidates
-    h_ops0 = _apply_bank(params["op_enc"], skel.op_x.expand(E, 1, *skel.op_x.shape), cfg) * op_mask
-    h_hw0 = _apply_shared(params["hw_enc"], skel.hw_x.expand(E, 1, *skel.hw_x.shape), cfg, "hw_enc") * hw_mask
-
-    # full padded layout: no contiguous spans available, full-width levels
-    plan = StagePlan(
-        "exact",
-        levels=tuple(
-            (d, None, SLOT_RANGES, None) for d, level in enumerate(static.updates, start=1) if level
-        ),
-        updates=static.updates,
-    )
-    return _stages123(
-        params, h_ops0, h_hw0, a_place, skel.a_flow, skel.op_depth, cfg,
-        ranges=SLOT_RANGES, plan=plan, op_mask=op_mask, hw_mask=hw_mask,
-    )
-
-
 def apply_gnn_placed(
     params: nn.Params,
     skel: JointGraph,
@@ -574,12 +491,15 @@ def apply_gnn_placed(
 ) -> torch.Tensor:
     """Placement-batch forward: one query, ``(B, O, W)`` candidate placements.
 
-    Numerically the same as ``apply_gnn_batch`` on the broadcast batch, but
-    stage 0 runs once on the unbatched skeleton, and stage 3 only touches the
-    depth levels the query has (``static.updates``).  One member's params;
-    returns ``(B, n_outputs)``.
+    One member's params; returns ``(B, n_outputs)``.  It is
+    ``apply_gnn_placed_stacked`` over the params as a stack of one member, at
+    the skeleton's real host count and with no panels: stage 0 runs once on
+    the skeleton, and every stage on the slots that hold an operator.
+    Numerically the same as ``apply_gnn_batch`` on the broadcast batch, to
+    float tolerance.
     """
-    return apply_gnn_placed_members(nn.members(params), skel, a_place, static, cfg)[0]
+    n_hw = int(skel.hw_mask.sum())
+    return _placed_stacked(nn.members(params), skel, a_place, static, cfg, n_hw, 0)[0]
 
 
 def _slot_type(slot: int) -> int:
@@ -651,13 +571,19 @@ def apply_gnn_placed_stacked(
     axis runs in ``chunk``-wide panels when ``B > chunk`` and ``chunk``
     divides ``B`` (``chunk=0`` disables; ``None`` reads the active
     ``DispatchPolicy``'s ``score_chunk``).  Stage 0 runs once for every
-    member, with the shared skeleton input read at member stride 0.
+    member, with the shared skeleton input read at member stride 0.  Stage
+    3 walks the query's depth levels, each at its row span.
     """
+    return _placed_stacked(params, skel, a_place, static, cfg, n_hw, chunk)[..., 0]
+
+
+def _placed_stacked(params, skel, a_place, static, cfg, n_hw, chunk):
+    """``apply_gnn_placed_stacked`` with every output -> ``(E, B, n_outputs)``."""
     if chunk is None:
         from repro_torch.serve.policy import active_policy  # lazy: core never pulls serve at import
 
         chunk = active_policy().score_chunk
-    order, ranges, updates, levels = _trimmed_layout(static)
+    order, ranges, _, levels = _trimmed_layout(static)
     idx = nn.index_tensor(order, skel.op_x.device)
     op_x = skel.op_x.index_select(0, idx)  # (n, F)
     hw_x = skel.hw_x[:n_hw]  # (n_hw, F_hw)
@@ -666,16 +592,14 @@ def apply_gnn_placed_stacked(
     a_place = a_place.index_select(1, idx)[:, :, :n_hw]  # (B, n, n_hw)
     B = a_place.shape[0]
     E = _n_members(params)
-    plan = StagePlan("exact", levels=levels, updates=updates)
+    plan = StagePlan(levels)
 
     # stage 0 is placement-invariant: once for all members, outside the panels
     h0_ops = _apply_bank(params["op_enc"], op_x.expand(E, 1, *op_x.shape), cfg, ranges)
     h0_hw = _apply_shared(params["hw_enc"], hw_x.expand(E, 1, *hw_x.shape), cfg, "hw_enc")
 
     def fwd(ap):
-        return _stages123(
-            params, h0_ops, h0_hw, ap, a_flow, op_depth, cfg, ranges=ranges, plan=plan
-        )[..., 0]
+        return _stages123(params, h0_ops, h0_hw, ap, a_flow, op_depth, cfg, ranges=ranges, plan=plan)
 
     if chunk and B > chunk and B % chunk == 0:
         return torch.cat([fwd(a_place[i : i + chunk]) for i in range(0, B, chunk)], dim=1)

@@ -11,14 +11,24 @@ built from an in-memory model dict or a ``CostModelBundle``.  It owns
 * the per-(query, cluster) **skeleton LRU**: the featurized host skeleton,
   its device copy, and the ``QueryStatic``, shared by every ``score`` /
   ``optimize`` call on the same pair;
-* the per-metrics-tuple **stacked-ensemble cache**: all requested metrics
-  ride ONE fused forward (one kernel launch per stage) when their GNN
-  configs are shape-identical;
+* the per-metrics-tuple **stack cache** (``_stacks_for``): the requested
+  metrics' ensembles stacked along the member axis on the device, in one
+  stack when their configs match (one forward a chunk, one kernel launch
+  per stage), else in one stack per metric;
 * the per-drain-mix **merged-group LRU** of ``score_many``: the device
   skeleton stack of a set of structures, its banding and its parent bound,
   and on a GPU the stack's constants of the merged forward and the CUDA
   graphs that replay it (``serve/graphs.py``), one per stacked ensemble and
   row bucket, captured on first sight into one memory pool.
+
+Every entry answers through one launch path.  Its rows go in chunks (one
+for ``estimate`` and ``score``, ``max_rows`` wide for ``estimate_many`` and
+``score_many``); each chunk's forward runs against each stack and its
+readback is queued right behind it (``_launch``).  One finalize
+(``_collect``) then waits on the readbacks, votes each stack, joins the
+chunks and splits the answers per request.  A ``traditional_mp`` model has
+no placed or merged placed forward: ``score`` runs it through ``estimate``
+on the broadcast batch, ``score_many`` per request.
 
 PyTorch runs eagerly, so the JAX package's trace caches have no counterpart,
 and buffer donation none either (PyTorch frees a chunk's inputs when the last
@@ -55,7 +65,7 @@ from __future__ import annotations
 import warnings
 from collections import OrderedDict
 from collections.abc import Mapping
-from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -64,7 +74,6 @@ from repro_torch import nn, obs
 from repro_torch.core.gnn import (
     MergedConstants,
     apply_gnn_merged,
-    apply_gnn_placed_members,
     apply_gnn_placed_stacked,
     merged_constants,
 )
@@ -87,13 +96,8 @@ from repro_torch.core.graph import (
 )
 from repro_torch.core.model import CostModelConfig, forward_ensemble
 from repro_torch.serve.graphs import MergedGraph, row_bucket
-from repro_torch.serve.policy import DispatchPolicy, active_policy, resolve_policy
-from repro_torch.serve.stacking import (
-    StackedEnsembles,
-    _ensemble_vote,
-    _split_votes,
-    stack_metric_models,
-)
+from repro_torch.serve.policy import DispatchPolicy, resolve_policy
+from repro_torch.serve.stacking import StackedEnsembles, _split_votes, stack_metric_models
 
 
 class NonFiniteEstimate(RuntimeError):
@@ -230,15 +234,9 @@ def stage_graph_batches(batches: Sequence[JointGraph], device) -> Tuple[JointGra
 
 # -- stateless scoring primitives -------------------------------------------------
 #
-# The numeric cores behind the facade methods; ``params`` and the graphs
-# must already be on one device.
-
-
-def ensemble_predict(params, g: JointGraph, cfg: CostModelConfig) -> np.ndarray:
-    """Ensemble prediction in *cost space* for a batch of graphs."""
-    with torch.no_grad():
-        raw = forward_ensemble(params, g, cfg)
-    return _ensemble_vote(_host(raw), cfg)
+# The numeric cores behind the facade methods, and the chunks of the one launch
+# path (``CostEstimator._launch``); ``params`` and the graphs must already be on
+# one device.
 
 
 def ensemble_proba(params, g: JointGraph, cfg: CostModelConfig) -> np.ndarray:
@@ -250,45 +248,36 @@ def ensemble_proba(params, g: JointGraph, cfg: CostModelConfig) -> np.ndarray:
     return (1.0 / (1.0 + np.exp(-raw))).mean(axis=0)
 
 
-def placed_predict(
-    params, skel: JointGraph, a_place: torch.Tensor, static: QueryStatic, cfg: CostModelConfig
-) -> np.ndarray:
-    """Ensemble prediction over candidate placements of ONE query.
+class _GraphChunk(NamedTuple):
+    """Graphs of an ``estimate`` or ``estimate_many`` chunk."""
 
-    ``skel`` is the shared unbatched skeleton, ``a_place`` the ``(B, O, W)``
-    placement adjacencies; numerically equivalent to ``ensemble_predict`` on
-    the broadcast batch.
-    """
-    with torch.no_grad():
-        raw = apply_gnn_placed_members(params, skel, a_place, static, cfg.gnn)[..., 0]
-    return _ensemble_vote(_host(raw), cfg)
+    host: JointGraph  # numpy
+    dev: JointGraph  # on the device
+    banding: Optional[BatchBanding]  # None: the full-depth scan
 
 
-def placed_predict_fused(
-    stacked: StackedEnsembles,
-    skel: JointGraph,
-    a_place: torch.Tensor,
-    static: QueryStatic,
-    n_hw: int,
-    deferred: bool = False,
-    chunk: Optional[int] = None,
-) -> Dict[str, np.ndarray]:
-    """All metrics' ensembles over one query's candidate placements, fused.
+def _graph_forward(chunk: _GraphChunk, i: int, stack: StackedEnsembles, fw):
+    """A graph chunk's forward over ``stack`` -> (raw, every column)."""
+    cfg = stack.cfgs[0]
+    if fw.on and not cfg.traditional_mp:
+        host = chunk.host
+        if chunk.banding is None:  # the full-depth scan: every level, every row
+            rows3 = cfg.gnn.max_depth * int(np.size(host.op_mask))
+        else:  # the banded plan: each level covers its span, in every graph
+            rows3 = int(host.op_x.shape[0]) * _level_rows(chunk.banding)
+        fw.set(rows3=rows3, real3=_real3(host.op_mask, host.op_depth))
+    return forward_ensemble(stack.params, chunk.dev, cfg, chunk.banding), None
 
-    One ``apply_gnn_placed_stacked`` call evaluates every (metric, member)
-    pair with one kernel launch per GNN stage, on the trimmed active-slot
-    layout; the raw ``(sum_E, B)`` block is split back per metric and voted.
-    ``n_hw`` is the skeleton's real host count, which the caller reads off
-    its host copy (reading it off ``skel`` would wait for the device).
-    """
-    if stacked.cfgs[0].traditional_mp:
-        raise ValueError("traditional_mp models have no placed forward")
-    if chunk is None:
-        chunk = active_policy().score_chunk
-    with torch.no_grad():
-        raw = apply_gnn_placed_stacked(stacked.params, skel, a_place, static, stacked.cfgs[0].gnn, n_hw, chunk)
-    raw = _queue_host(raw)
-    return _maybe_defer(lambda: _split_votes(_host(raw), stacked), deferred)
+
+class _PlacedChunk(NamedTuple):
+    """Rows of a ``score_many`` chunk: on a GPU staged into each stack's graph,
+    on the CPU as device slices."""
+
+    group: _MergedGroup
+    rows: np.ndarray  # each row's skeleton index, on the host
+    graphs: Tuple[MergedGraph, ...]  # on a GPU, per stack: its graph, the rows staged
+    skel_id: Optional[torch.Tensor] = None  # on the CPU
+    a_place: Optional[torch.Tensor] = None
 
 
 # -- the facade -------------------------------------------------------------------
@@ -324,7 +313,7 @@ class CostEstimator:
         self.meta = dict(meta or {})
         self.policy = (policy if policy is not None else resolve_policy()).validate()
         self._skeletons: "OrderedDict[Tuple, Tuple[JointGraph, JointGraph, QueryStatic]]" = OrderedDict()
-        self._stacked: Dict[Tuple[str, ...], Optional[StackedEnsembles]] = {}
+        self._stacks: Dict[Tuple[str, ...], Tuple[StackedEnsembles, ...]] = {}
         # cross-query drain mixes: frozenset of structure keys -> their entry
         self._merged_groups: "OrderedDict[frozenset, _MergedGroup]" = OrderedDict()
         self._graph_pool = None  # the one memory pool of the merged forward's CUDA graphs
@@ -439,9 +428,9 @@ class CostEstimator:
         ``batch`` is either a batched ``JointGraph`` (numpy arrays) or a
         sequence of traces (anything with ``.query``/``.cluster``/
         ``.placement``), featurized here in one pass.  The batch moves to the
-        device once; shape-identical per-metric configs run as ONE stacked
-        forward (the full-depth scan plan), others as a per-metric loop.
-        Returns metric -> predictions aligned with the batch.
+        device once and is one chunk: one forward per stack, on the
+        full-depth scan plan.  Returns metric -> predictions aligned with the
+        batch (0-d for a single graph).
         """
         metrics = tuple(metrics) if metrics is not None else tuple(self.models)
         with obs.span("estimator.estimate") as sp:
@@ -450,24 +439,9 @@ class CostEstimator:
             n = int(g.op_x.shape[0]) if g.op_x.ndim == 3 else 1
             sp.set(n=n)
             self._before("estimate", n)
-            stacked = self._stacked_for(metrics)
-            with torch.no_grad(), obs.span("gnn.forward") as fw:
-                if stacked is None:  # mixed architectures: per-metric forwards, shared batch
-                    raws = {m: forward_ensemble(self._params_for(m), g, self.models[m][1]) for m in metrics}
-                else:
-                    if fw.on and not stacked.cfgs[0].traditional_mp:  # the full-depth scan: every level, every row
-                        fw.set(rows3=stacked.cfgs[0].gnn.max_depth * int(np.size(host.op_mask)),
-                               real3=_real3(host.op_mask, host.op_depth))
-                    raw = forward_ensemble(stacked.params, g, stacked.cfgs[0])
-            if stacked is None:
-                raws = {m: _queue_host(r) for m, r in raws.items()}
-                return self._finish(
-                    "estimate",
-                    lambda: {m: _ensemble_vote(_host(raws[m]), self.models[m][1]) for m in metrics},
-                    deferred,
-                )
-            raw = _queue_host(raw)
-            return self._finish("estimate", lambda: _split_votes(_host(raw), stacked), deferred)
+            stacks = self._stacks_for(metrics)
+            launched = self._launch(stacks, n, None, lambda s, e: _GraphChunk(host, g, None), _graph_forward)
+            return self._finish("estimate", lambda: self._collect(stacks, launched), deferred)
 
     def proba(self, batch, metric: str) -> np.ndarray:
         """Mean ensemble probability for one classification metric."""
@@ -496,23 +470,78 @@ class CostEstimator:
             self._skeletons.popitem(last=False)
         return entry
 
-    def _stacked_for(self, metrics: Tuple[str, ...]) -> Optional[StackedEnsembles]:
-        """Fused ensemble stack for ``metrics`` on the device, or None if not fusable."""
-        if metrics not in self._stacked:
+    def _stacks_for(self, metrics: Tuple[str, ...]) -> Tuple[StackedEnsembles, ...]:
+        """The ensemble stacks that answer ``metrics``, on the device, cached per
+        metrics tuple: one stack when the metrics' configs match, else one
+        single-metric stack per metric, in ``metrics`` order."""
+        stacks = self._stacks.get(metrics)
+        if stacks is None:
             try:
-                stacked = stack_metric_models(self.models, metrics)
-            except ValueError:  # heterogeneous per-metric configs
-                self._stacked[metrics] = None
-            else:
-                self._stacked[metrics] = stacked._replace(params=nn.to_device(stacked.params, self.device))
-        return self._stacked[metrics]
+                stacks = (stack_metric_models(self.models, metrics),)
+            except ValueError:  # differing configs (or no metric)
+                stacks = tuple(stack_metric_models(self.models, (m,)) for m in metrics)
+            stacks = self._stacks[metrics] = tuple(
+                st._replace(params=nn.to_device(st.params, self.device)) for st in stacks
+            )
+        return stacks
+
+    def _launch(
+        self,
+        stacks: Sequence[StackedEnsembles],
+        total: int,
+        max_rows: Optional[int],
+        prepare: Callable,
+        forward: Callable,
+    ) -> List[List]:
+        """The one launch path: rows ``[0, total)`` in ``max_rows`` chunks (one
+        chunk when None), each made on the host by ``prepare(start, stop)``,
+        then run against every stack: ``forward(chunk, i, stacks[i], fw)``
+        launches the forward inside its ``gnn.forward`` span ``fw`` (setting
+        the span's attributes while it records) and returns the raw ``(E, B)``
+        output and its real columns (None: all), whose readback is queued
+        right behind it.  Every chunk is queued before the host waits on
+        any.  Returns the readbacks, per chunk, per stack (``_collect``)."""
+        step = max_rows or max(total, 1)
+        launched = []
+        for s in range(0, max(total, 1), step):
+            chunk = prepare(s, min(s + step, total))
+            row = []
+            for i, stack in enumerate(stacks):
+                with torch.no_grad(), obs.span("gnn.forward") as fw:
+                    raw, cols = forward(chunk, i, stack, fw)
+                row.append(_queue_host(raw, cols))
+            launched.append(row)
+        return launched
+
+    @staticmethod
+    def _collect(stacks, launched, sizes: Optional[Sequence[int]] = None):
+        """The one finalize: waits on each readback, votes it per stack, and
+        with ``sizes`` joins the chunks and splits them into one metric ->
+        answers dict per request; without, the one chunk's dict."""
+        parts = []
+        for row in launched:
+            votes = {}
+            for raw, stack in zip(row, stacks):
+                votes.update(_split_votes(_host(raw), stack))
+            parts.append(votes)
+        if sizes is None:
+            (out,) = parts
+            return out
+        with obs.span("host.vote"):
+            joined = {m: np.concatenate([p[m] for p in parts]) for m in parts[0]}
+            out, off = [], 0
+            for size in sizes:
+                out.append({m: v[off : off + size] for m, v in joined.items()})
+                off += size
+            return out
 
     def scorer(self, query, cluster, metrics: Sequence[str], deferred: bool = False):
         """Scoring closure with the per-(query, cluster) work hoisted out.
 
         The skeleton, its device copy and the ``QueryStatic`` come from the
         LRU (at most ONE skeleton build per pair), and every scored batch is
-        one fused stacked forward.  ``deferred`` makes the closure return a
+        one chunk: one placed forward per stack, its padded rows sliced off
+        before the vote.  ``deferred`` makes the closure return a
         ``DeferredResult``.  ``traditional_mp`` models lack the 3-stage
         structure the placed forward exploits: they score the full broadcast
         batch through ``estimate``.
@@ -533,7 +562,17 @@ class CostEstimator:
             return score_generic
         host, skel, static = self._skeleton_entry(query, cluster)
         n_hw = int(host.hw_mask.sum())
-        stacked = self._stacked_for(metrics)
+        stacks = self._stacks_for(metrics)
+        per_row = sum(len(level) for level in static.updates)  # the operators stage 3 updates
+
+        def forward(chunk, i, stack, fw):
+            a_place, n = chunk
+            if fw.on:  # the exact plan: each level covers just its operators
+                fw.set(rows3=int(a_place.shape[0]) * per_row, real3=n * per_row)
+            raw = apply_gnn_placed_stacked(
+                stack.params, skel, a_place, static, stack.cfgs[0].gnn, n_hw, self.policy.score_chunk
+            )
+            return raw, n
 
         def score(assignments: np.ndarray) -> Dict[str, np.ndarray]:
             n = len(assignments)
@@ -547,25 +586,8 @@ class CostEstimator:
                     if pad:
                         a_place = np.concatenate([a_place, np.repeat(a_place[-1:], pad, axis=0)])
                 (a_place,) = nn.arrays_to_device([a_place], self.device)
-                if stacked is not None:
-                    with obs.span("gnn.forward") as fw:
-                        if fw.on:  # the exact plan: each level covers just its operators
-                            per_row = sum(len(level) for level in static.updates)
-                            fw.set(rows3=int(a_place.shape[0]) * per_row, real3=n * per_row)
-                        pending = placed_predict_fused(
-                            stacked, skel, a_place, static, n_hw, deferred=True,
-                            chunk=self.policy.score_chunk,
-                        )
-                    return self._finish(
-                        "score", lambda: {m: v[:n] for m, v in pending.result().items()}, deferred
-                    )
-                # heterogeneous (non-fusable) configs: per-metric loop
-                with obs.span("gnn.forward"):
-                    out = {
-                        m: placed_predict(self._params_for(m), skel, a_place, static, self.models[m][1])[:n]
-                        for m in metrics
-                    }
-                return self._finish("score", lambda: out, deferred)
+                launched = self._launch(stacks, n, None, lambda s, e: (a_place, n), forward)
+                return self._finish("score", lambda: self._collect(stacks, launched), deferred)
 
         return score
 
@@ -580,8 +602,8 @@ class CostEstimator:
         """Score an ``(N, n_ops)`` assignment matrix on every requested metric.
 
         One skeleton build per (query, cluster) pair (LRU-amortized), one
-        bucket-padded stacked forward per call; padding rows are sliced off,
-        so results are independent of the bucket and of batchmates.
+        bucket-padded forward per stack and call; padding rows are sliced
+        off, so results are independent of the bucket and of batchmates.
         """
         metrics = tuple(metrics) if metrics is not None else tuple(self.models)
         return self.scorer(query, cluster, metrics, deferred=deferred)(
@@ -591,16 +613,14 @@ class CostEstimator:
     # -- cross-query broadcast batches -------------------------------------------
 
     def supports_cross_query(self, metrics: Optional[Sequence[str]] = None) -> bool:
-        """Whether ``metrics`` can ride one merged cross-query forward.
-
-        Requires a fusable ensemble stack (shape-identical GNN configs) with
-        the 3-stage structure (``traditional_mp`` models aggregate over
-        rounds, not stages).  ``estimate_many`` / ``score_many`` fall back to
-        per-request answers when this is False.
+        """Whether ``score_many`` answers ``metrics`` with merged forwards: no
+        ``traditional_mp`` model among them (those aggregate over rounds, not
+        stages, so they have no merged placed forward and ``score_many``
+        answers them per request).  Metrics whose configs differ ride the
+        merged forwards once per stack (``_stacks_for``).
         """
         metrics = tuple(metrics) if metrics is not None else tuple(self.models)
-        stacked = self._stacked_for(metrics)
-        return stacked is not None and not stacked.cfgs[0].traditional_mp
+        return not any(self.models[m][1].traditional_mp for m in metrics)
 
     @classmethod
     def _host_graphs(cls, batch) -> JointGraph:
@@ -610,57 +630,27 @@ class CostEstimator:
         g = JointGraph(*[np.asarray(x) for x in batch])
         return JointGraph(*[x[None] for x in g]) if g.op_x.ndim == 2 else g
 
-    @staticmethod
-    def _split_back(launched, stacked: StackedEnsembles, metrics, sizes) -> List[Dict[str, np.ndarray]]:
-        """Per-chunk raw outputs -> votes, concatenated, then split per ``sizes``."""
-        parts = [_split_votes(_host(raw), stacked) for raw in launched]
-        with obs.span("host.vote"):
-            merged = {m: np.concatenate([p[m] for p in parts]) for m in metrics}
-            out, off = [], 0
-            for size in sizes:
-                out.append({m: merged[m][off : off + size] for m in metrics})
-                off += size
-            return out
-
-    def _merged_forward(
-        self,
-        merged: JointGraph,
-        sizes: Sequence[int],
-        metrics: Tuple[str, ...],
-        max_rows: Optional[int],
-        deferred: bool = False,
-        dev: Optional[JointGraph] = None,
-    ) -> List[Dict[str, np.ndarray]]:
-        """One stacked forward per ``max_rows`` chunk of a merged host batch.
-
-        Each chunk gets the signature-exact, row-trimmed banding of the
-        structures it contains (``exact_banding_cached``), so stage-3 work
-        tracks real rows: the fused ``sweep`` plan, one ``mp_sweep`` launch
-        per chunk under ``use_pallas``.  Chunks are not bucket-padded: the
-        forward runs eagerly, so a power-of-two row count would only add
-        work.  Every chunk, with its readback right behind it, is queued on
-        the device before the host waits on any; answers are split back per
-        source batch.  ``dev``, the merged batch already on the device
+    def _graph_chunks(self, merged: JointGraph, dev: Optional[JointGraph], banded: bool) -> Callable:
+        """``estimate_many``'s chunk maker over a merged host batch: each chunk
+        gets the signature-exact, row-trimmed banding of the structures it
+        holds (``exact_banding_cached``; the fused plan, one ``mp_sweep``
+        launch under ``use_pallas``), unless no stack is ``banded``.  Chunks
+        are not padded: the forward runs eagerly, so a power-of-two row count
+        would only add work.  ``dev``, the merged batch already on the device
         (``stage_graph_batches``), is sliced per chunk; without it each chunk
-        is copied to the device on its own.
-        """
-        stacked = self._stacked_for(metrics)
-        total = int(merged.op_x.shape[0])
-        step = max_rows if max_rows else total
-        launched = []  # each chunk's readback (``_queue_host``)
-        for s in range(0, total, step):
-            chunk = JointGraph(*[x[s : s + step] for x in merged])
-            with obs.span("host.banding") as sp:
-                banding, hit = exact_banding_lookup(chunk)
-                sp.set(hit=hit)
-            g = graphs_to_device(chunk, self.device) if dev is None else JointGraph(*[x[s : s + step] for x in dev])
-            with torch.no_grad(), obs.span("gnn.forward") as fw:
-                if fw.on:  # the banded plan: each level covers its span, in every graph
-                    fw.set(rows3=int(chunk.op_x.shape[0]) * _level_rows(banding),
-                           real3=_real3(chunk.op_mask, chunk.op_depth))
-                raw = forward_ensemble(stacked.params, g, stacked.cfgs[0], banding)
-            launched.append(_queue_host(raw))
-        return _maybe_defer(lambda: self._split_back(launched, stacked, metrics, sizes), deferred)
+        is copied to the device on its own."""
+
+        def prepare(s: int, e: int) -> _GraphChunk:
+            chunk = JointGraph(*[x[s:e] for x in merged])
+            banding = None
+            if banded:
+                with obs.span("host.banding") as sp:
+                    banding, hit = exact_banding_lookup(chunk)
+                    sp.set(hit=hit)
+            g = graphs_to_device(chunk, self.device) if dev is None else JointGraph(*[x[s:e] for x in dev])
+            return _GraphChunk(chunk, g, banding)
+
+        return prepare
 
     def estimate_many(
         self,
@@ -674,8 +664,8 @@ class CostEstimator:
         ``batches`` entries are batched ``JointGraph``s (numpy; single graphs
         are promoted, empty batches allowed) or trace sequences; structures
         may differ freely, since every graph shares the canonical padded
-        layout: the batches concatenate along the batch axis and one stacked
-        forward per ``max_rows`` chunk answers everything.  Returns one
+        layout: the batches concatenate along the batch axis and one forward
+        per stack and ``max_rows`` chunk answers everything.  Returns one
         metric -> predictions dict per input batch, order-aligned.
         """
         metrics = tuple(metrics) if metrics is not None else tuple(self.models)
@@ -691,47 +681,19 @@ class CostEstimator:
             host = [self._host_graphs(b) for b in batches]
             sizes = tuple(int(g.op_x.shape[0]) for g in host)
             n = sum(sizes)
-            cross = n > 0 and self.supports_cross_query(metrics)
-            if cross and self.device.type == "cpu":  # each chunk's tensors are views of these arrays
+            if n and self.device.type == "cpu":  # each chunk's tensors are views of these arrays
                 merged, dev = merge_graph_batches(host).graphs, None
             mg.set(graphs=n)
         sp.set(n=n)
         if n == 0:
             raise ValueError("no graphs to estimate")
-        if not cross:
-            # heterogeneous configs: per-batch fallback, chunked like the
-            # merged path; every chunk is queued before any is read back,
-            # and the finiteness guard runs inside the delegated
-            # ``estimate`` calls
-            pendings: List[Optional[List[DeferredResult]]] = []
-            for g in host:
-                total = int(g.op_x.shape[0])
-                if total == 0:  # filled in below with zero-width answers
-                    pendings.append(None)
-                    continue
-                step = max_rows if max_rows else total
-                pendings.append([
-                    self.estimate(JointGraph(*[x[s : s + step] for x in g]), metrics, deferred=True)
-                    for s in range(0, total, step)
-                ])
-
-            def finalize_fallback() -> List[Dict[str, np.ndarray]]:
-                out: List[Optional[Dict[str, np.ndarray]]] = []
-                for parts in pendings:
-                    if parts is None:
-                        out.append(None)
-                        continue
-                    done = [p.result() for p in parts]
-                    out.append({m: np.concatenate([d[m] for d in done]) for m in metrics})
-                template = next(o for o in out if o is not None)
-                return [o if o is not None else {m: template[m][:0] for m in metrics} for o in out]
-
-            return _maybe_defer(finalize_fallback, deferred)
         self._before("estimate_many", n)
         if self.device.type != "cpu":  # one copy on the host, straight into the staging buffer
             merged, dev = stage_graph_batches(host, self.device)
-        pending = self._merged_forward(merged, sizes, metrics, max_rows, deferred=True, dev=dev)
-        return self._finish("estimate_many", pending.result, deferred)
+        stacks = self._stacks_for(metrics)
+        banded = not all(st.cfgs[0].traditional_mp for st in stacks)  # traditional_mp has no stage 3
+        launched = self._launch(stacks, n, max_rows, self._graph_chunks(merged, dev, banded), _graph_forward)
+        return self._finish("estimate_many", lambda: self._collect(stacks, launched, sizes), deferred)
 
     def score_many(
         self,
@@ -747,7 +709,8 @@ class CostEstimator:
         Requests are regrouped structure-major: each structure contributes
         its LRU-cached skeleton once plus all its candidate rows, and one
         stacked ``apply_gnn_merged`` forward per ``max_rows`` chunk scores
-        every (metric, member, candidate) triple.  ``keys`` optionally
+        every (metric, member, candidate) triple (one forward per stack when
+        the metrics' configs differ).  ``keys`` optionally
         carries precomputed ``skeleton_cache_key``s.  Returns one metric ->
         (N_i,) dict per request, order-aligned; answers equal per-request
         ``score`` to float tolerance (the same math in another association
@@ -766,7 +729,7 @@ class CostEstimator:
 
     def _score_many(self, requests, metrics, max_rows, keys, deferred, sp):
         """``score_many``'s merged path, inside its root span ``sp``."""
-        stacked = self._stacked_for(metrics)
+        stacks = self._stacks_for(metrics)
         with obs.span("host.keys", requests=len(requests)):
             if keys is None:
                 keys = [skeleton_cache_key(q, c) for q, c, _ in requests]
@@ -794,13 +757,14 @@ class CostEstimator:
                 blocks.append(block)
                 ids.append(np.full(len(block), group.index_of[key], dtype=np.int64))
             skel_id, a_place = np.concatenate(ids), np.concatenate(blocks)
-        pending = self._merged_placements_forward(
-            group, skel_id, a_place, [len(b) for b in blocks], stacked, metrics, max_rows, deferred=True,
+        launched = self._launch(
+            stacks, n, max_rows, self._placed_chunks(group, stacks, skel_id, a_place), self._placed_forward
         )
+        block_sizes = [len(b) for b in blocks]
 
         def finalize() -> List[Dict[str, np.ndarray]]:
             # split each structure's block back onto its requests, in order
-            parts = pending.result()
+            parts = self._collect(stacks, launched, block_sizes)
             with obs.span("host.vote"):
                 out: List[Optional[Dict[str, np.ndarray]]] = [None] * len(requests)
                 for g_out, idxs in zip(parts, groups.values()):
@@ -849,53 +813,44 @@ class CostEstimator:
                 self._merged_groups.popitem(last=False)
             return entry
 
-    def _merged_placements_forward(
-        self,
-        group: _MergedGroup,
-        skel_id: np.ndarray,
-        a_place: np.ndarray,
-        sizes: Sequence[int],
-        stacked: StackedEnsembles,
-        metrics: Tuple[str, ...],
-        max_rows: Optional[int],
-        deferred: bool = False,
-    ) -> List[Dict[str, np.ndarray]]:
-        """The merged forward over a structure-major placement batch, one per
-        ``max_rows`` chunk, each queued on the device with its readback right
-        behind it before the host waits on any.
+    def _placed_chunks(self, group: _MergedGroup, stacks, skel_id: np.ndarray, a_place: np.ndarray) -> Callable:
+        """``score_many``'s chunk maker over a structure-major placement batch.
 
-        On a GPU each chunk runs at its row bucket (``graphs.row_bucket``):
-        its rows, padded, go to the static inputs of the group's graph for
-        this ensemble and bucket in one copy, and the graph is replayed
-        (captured on first sight; ``graphs.MergedGraph``); only the real
-        rows are read back.  On the CPU the rows go to the device in one
-        copy and each chunk runs ``apply_gnn_merged`` unpadded.
-        """
-        total = int(a_place.shape[0])
-        step = max_rows if max_rows else total
+        On a GPU a chunk runs at its row bucket (``graphs.row_bucket``): its
+        rows, padded, go to the static inputs of the group's graph for each
+        stack and that bucket, in one copy each.  On the CPU the rows go to
+        the device in one copy and each chunk is a slice of them."""
         if group.consts is None:
             skel_id_dev, a_place_dev = nn.arrays_to_device([skel_id, a_place], self.device)
-        launched = []  # each chunk's readback (``_queue_host``)
-        for s in range(0, total, step):
-            rows = skel_id[s : s + step]
-            graph = None
-            if group.consts is not None:
-                graph = self._merged_graph(group, stacked, row_bucket(len(rows)), a_place.shape[1:])
-                graph.stage(rows, a_place[s : s + step])
-            with torch.no_grad(), obs.span("gnn.forward") as fw:
-                if graph is not None:
-                    raw, how = graph.run(self._graph_pool)
-                else:
-                    how = "eager"
-                    raw = apply_gnn_merged(
-                        stacked.params, group.skels, skel_id_dev[s : s + step], a_place_dev[s : s + step],
-                        stacked.cfgs[0].gnn, group.banding, group.max_parents,
-                    )
-                if fw.on:  # the banded plan over the skeletons' rows, pad rows included
-                    fw.set(rows3=int(raw.shape[-1]) * _level_rows(group.banding),
-                           real3=int(group.real3[rows].sum()), graph=how)
-            launched.append(_queue_host(raw, len(rows)))
-        return _maybe_defer(lambda: self._split_back(launched, stacked, metrics, sizes), deferred)
+
+        def prepare(s: int, e: int) -> _PlacedChunk:
+            rows = skel_id[s:e]
+            if group.consts is None:
+                return _PlacedChunk(group, rows, (), skel_id_dev[s:e], a_place_dev[s:e])
+            graphs = tuple(self._merged_graph(group, st, row_bucket(len(rows)), a_place.shape[1:]) for st in stacks)
+            for graph in graphs:
+                graph.stage(rows, a_place[s:e])
+            return _PlacedChunk(group, rows, graphs)
+
+        return prepare
+
+    def _placed_forward(self, chunk: _PlacedChunk, i: int, stack: StackedEnsembles, fw):
+        """``score_many``'s forward of a chunk over ``stacks[i]``: on a GPU its
+        graph replayed (captured on first sight; ``graphs.MergedGraph``), on
+        the CPU ``apply_gnn_merged`` unpadded; only the real rows are read back."""
+        group = chunk.group
+        if chunk.graphs:
+            raw, how = chunk.graphs[i].run(self._graph_pool)
+        else:
+            how = "eager"
+            raw = apply_gnn_merged(
+                stack.params, group.skels, chunk.skel_id, chunk.a_place,
+                stack.cfgs[0].gnn, group.banding, group.max_parents,
+            )
+        if fw.on:  # the banded plan over the skeletons' rows, pad rows included
+            fw.set(rows3=int(raw.shape[-1]) * _level_rows(group.banding),
+                   real3=int(group.real3[chunk.rows].sum()), graph=how)
+        return raw, len(chunk.rows)
 
     def _merged_graph(self, group: _MergedGroup, stacked: StackedEnsembles, rows: int, place_shape) -> MergedGraph:
         """The group's graph for ``stacked`` at ``rows``, made on first sight
@@ -910,7 +865,7 @@ class CostEstimator:
         obs.count("cache.graph.miss")
         if self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
-        live = {id(x) for x in self._stacked.values() if x is not None}
+        live = {id(st) for stacks in self._stacks.values() for st in stacks}
         for k in [k for k, g in group.graphs.items() if id(g.stacked) not in live]:
             del group.graphs[k]
         graph = group.graphs[key] = MergedGraph(stacked, group.consts, rows, tuple(place_shape), self.device)

@@ -919,16 +919,11 @@ class PlacementService:
         total = sum(sizes)
         if total == 0:
             raise ValueError("no graphs to estimate")
-        # estimate_many merges along the batch axis and max_batch-chunks.
-        # Unmergeable metrics (heterogeneous configs) chunk per batch
-        # instead, so count what was actually issued
+        # estimate_many merges along the batch axis and max_batch-chunks
         pending = self.estimator.estimate_many(
             graphs, metrics, max_rows=self.max_batch, deferred=True
         )
-        if self.estimator.supports_cross_query(metrics):
-            n_forwards = -(-total // self.max_batch)
-        else:
-            n_forwards = sum(-(-n // self.max_batch) for n in sizes if n)
+        n_forwards = -(-total // self.max_batch)
         est = self.estimator  # finalize must use the estimator that launched
 
         def finalize():

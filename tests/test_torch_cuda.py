@@ -44,7 +44,7 @@ from repro_torch.kernels.rglru.ref import linear_scan_ref
 from repro_torch.kernels.seg_gather.ref import gather_sum_ref, segment_sum_ref
 from repro_torch.models import blocks, params, steps, transformer
 from repro_torch.placement.enumerate import sample_assignment_matrix
-from repro_torch.serve.estimator import CostEstimator
+from repro_torch.serve.estimator import CostEstimator, _graph_forward
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -586,8 +586,14 @@ def test_estimate_many_staging_survives_queued_calls(cuda):
     pool = [batch_graphs([build_graph(t.query, t.cluster, t.placement) for t in traces[i : i + 96]])
             for i in range(0, len(traces), 96)]
     sets = [pool[0:3], pool[3:6], [pool[6], pool[7], pool[0]]]  # equal sizes: one block size
-    want = [est._merged_forward(merge_graph_batches(s).graphs, [len(b.op_x) for b in s], metrics, None)
-            for s in sets]
+    stacks = est._stacks_for(metrics)
+
+    def merged_then_copied(s):
+        sizes = [len(b.op_x) for b in s]
+        chunks = est._graph_chunks(merge_graph_batches(s).graphs, None, True)
+        return est._collect(stacks, est._launch(stacks, sum(sizes), None, chunks, _graph_forward), sizes)
+
+    want = [merged_then_copied(s) for s in sets]
     spin = _spin_cycles(100.0)
 
     def queued():
@@ -707,8 +713,8 @@ def test_a_swapped_stacked_ensemble_is_never_replayed_by_an_old_graph(cuda):
     metrics = tuple(models)
     est.score_many(reqs)
     old = est.score_many(reqs)
-    st = est._stacked_for(metrics)
-    est._stacked[metrics] = st._replace(params=nn.tree_map(lambda t: t * 1.25, st.params))
+    (st,) = est._stacks_for(metrics)
+    est._stacks[metrics] = (st._replace(params=nn.tree_map(lambda t: t * 1.25, st.params)),)
     before = _graph_counts()
     new = est.score_many(reqs)
     assert _graph_counts() == (before[0] + 1, before[1])
@@ -716,7 +722,7 @@ def test_a_swapped_stacked_ensemble_is_never_replayed_by_an_old_graph(cuda):
     assert _graph_counts() == (before[0] + 1, before[1] + 1)
     (group,) = est._merged_groups.values()
     (graph,) = group.graphs.values()
-    assert graph.stacked is est._stacked[metrics]
+    assert graph.stacked is est._stacks[metrics][0]
     assert not _same(new, old)
     want = fresh.score_many(reqs)
     assert _same(new, want) and _same(again, want)

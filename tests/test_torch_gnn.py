@@ -216,6 +216,40 @@ def test_kernel_calls_per_score_do_not_depend_on_members(n_ensemble, monkeypatch
     assert launches == (0, 0)
 
 
+@pytest.mark.parametrize("plan", ["scan", "banded", "exact"])
+def test_plain_and_kernel_routes_agree_on_every_plan(plan, monkeypatch):
+    """The one stage-3 walk on one corpus batch: under ``use_pallas`` the scan's and a query's
+    placed (exact) levels go through ``mp_update`` one call a level and a banding's table
+    through one ``mp_sweep``; the plain route walks the same levels through ``mp_sweep_ref``.
+    The two routes agree to ``TOL``."""
+    traces = WorkloadGenerator(seed=3).corpus(8)
+    g = graph.batch_graphs([graph.build_graph(t.query, t.cluster, t.placement) for t in traces])
+    t = max(traces, key=lambda t: sum(1 for level in graph.query_static(t.query).updates if level))
+    static = graph.query_static(t.query)
+    skel = graph.build_graph_skeleton(t.query, t.cluster)
+    a_place = graph.build_a_place_batch(
+        t.query, t.cluster, sample_assignment_matrix(t.query, t.cluster, 8, np.random.default_rng(0))
+    )
+    params = init_cost_model(torch.Generator().manual_seed(0), CostModelConfig(gnn=gnn.GNNConfig(hidden=16), n_ensemble=2))
+
+    def run(use_pallas):
+        cfg = gnn.GNNConfig(hidden=16, use_pallas=use_pallas)
+        with torch.no_grad():
+            if plan == "exact":
+                return gnn.apply_gnn_placed_stacked(
+                    params, _as_torch(skel), torch.from_numpy(a_place), static, cfg, int(skel.hw_mask.sum()), 0
+                ).numpy()
+            band = graph.exact_banding(g) if plan == "banded" else None
+            return gnn.apply_gnn_stacked(params, _as_torch(g), cfg, band).numpy()
+
+    plain = run(False)
+    counts = _count_calls(monkeypatch)
+    kernel = run(True)
+    levels = {"scan": gnn.GNNConfig().max_depth, "banded": 0, "exact": sum(1 for level in static.updates if level)}
+    assert (counts["mp_update"], counts["mp_sweep"]) == (levels[plan], int(plan == "banded"))
+    np.testing.assert_allclose(kernel, plain, **TOL)
+
+
 def _banded_corpus(seed=7, n=12):
     traces = JaxGenerator(seed=seed).corpus(n)
     g = jgraph.pad_batch(

@@ -27,7 +27,7 @@ from repro_torch.core.graph import (
 )
 from repro_torch.core.model import CostModelConfig, forward_ensemble, init_cost_model
 from repro_torch.dsps import WorkloadGenerator
-from repro_torch.serve.estimator import CostEstimator, graphs_to_device, stage_graph_batches
+from repro_torch.serve.estimator import CostEstimator, _graph_forward, graphs_to_device, stage_graph_batches
 from repro_torch.serve.stacking import _split_votes
 
 
@@ -203,7 +203,7 @@ def test_estimate_many_staged_matches_merge_and_exact_banding(estimator, max_row
     batches = _corpus_batches()
     sizes = [len(b.op_x) for b in batches]
     merged = merge_graph_batches(batches).graphs
-    stacked = est._stacked_for(metrics)
+    (stacked,) = stacks = est._stacks_for(metrics)
     total = sum(sizes)
     step = max_rows or total
     parts = []
@@ -217,8 +217,8 @@ def test_estimate_many_staged_matches_merge_and_exact_banding(estimator, max_row
     flat = {m: np.concatenate([p[m] for p in parts]) for m in metrics}
     want = np.split(np.arange(total), np.cumsum(sizes)[:-1])
     host, dev = stage_graph_batches(batches, "cpu")
-    runs = (est.estimate_many(batches, max_rows=max_rows),
-            est._merged_forward(host, sizes, metrics, max_rows, dev=dev))
+    launched = est._launch(stacks, total, max_rows, est._graph_chunks(host, dev, True), _graph_forward)
+    runs = (est.estimate_many(batches, max_rows=max_rows), est._collect(stacks, launched, sizes))
     for got in runs:
         assert len(got) == len(batches)
         for g_, idx in zip(got, want):
