@@ -95,9 +95,11 @@ from repro_torch.core.graph import (
     skeleton_cache_key,
 )
 from repro_torch.core.model import CostModelConfig, forward_ensemble
-from repro_torch.serve.graphs import MergedGraph, row_bucket
+from repro_torch.serve.graphs import ForwardGraph, merged_graph, padded_parts, row_bucket, zero_padded
 from repro_torch.serve.policy import DispatchPolicy, resolve_policy
 from repro_torch.serve.stacking import StackedEnsembles, _split_votes, stack_metric_models
+
+ESTIMATE_GRAPHS = 16  # ``estimate``'s CUDA graphs an estimator keeps, the least recently used dropped first
 
 
 class NonFiniteEstimate(RuntimeError):
@@ -213,7 +215,7 @@ class _MergedGroup(NamedTuple):
     max_parents: int
     real3: np.ndarray  # real rows at depth >= 1 per skeleton
     consts: Optional[MergedConstants]  # on a GPU: the stack's constants of the merged forward
-    graphs: Dict[Tuple[int, int], MergedGraph]  # (id of the stacked ensemble, row bucket) -> graph
+    graphs: Dict[Tuple[int, int], ForwardGraph]  # (id of the stacked ensemble, row bucket) -> graph
 
 
 def graphs_to_device(g: JointGraph, device) -> JointGraph:
@@ -252,21 +254,39 @@ class _GraphChunk(NamedTuple):
     """Graphs of an ``estimate`` or ``estimate_many`` chunk."""
 
     host: JointGraph  # numpy
-    dev: JointGraph  # on the device
+    dev: Optional[JointGraph]  # on the device; None when the chunk replays ``graphs``
     banding: Optional[BatchBanding]  # None: the full-depth scan
+    graphs: Tuple[ForwardGraph, ...] = ()  # ``estimate`` of a batch on a GPU: per stack, its graph, the batch staged
+
+
+def _scan_forward(stacked: StackedEnsembles, static) -> torch.Tensor:
+    """``estimate``'s graph forward: the full-depth scan over the static
+    ``JointGraph``, through this module's ``forward_ensemble`` as it stands
+    when the forward runs."""
+    return forward_ensemble(stacked.params, JointGraph(*static), stacked.cfgs[0], None)
 
 
 def _graph_forward(chunk: _GraphChunk, i: int, stack: StackedEnsembles, fw):
-    """A graph chunk's forward over ``stack`` -> (raw, every column)."""
+    """A graph chunk's forward over ``stack`` -> (raw, its real columns): on
+    a GPU a batch's graph replayed (captured on first sight), else
+    ``forward_ensemble`` eagerly."""
     cfg = stack.cfgs[0]
-    if fw.on and not cfg.traditional_mp:
+    graph = chunk.graphs[i] if chunk.graphs else None
+    if graph is not None:
+        raw, how = graph.run()
+    else:
+        raw, how = forward_ensemble(stack.params, chunk.dev, cfg, chunk.banding), "eager"
+    if fw.on:
         host = chunk.host
-        if chunk.banding is None:  # the full-depth scan: every level, every row
-            rows3 = cfg.gnn.max_depth * int(np.size(host.op_mask))
-        else:  # the banded plan: each level covers its span, in every graph
-            rows3 = int(host.op_x.shape[0]) * _level_rows(chunk.banding)
-        fw.set(rows3=rows3, real3=_real3(host.op_mask, host.op_depth))
-    return forward_ensemble(stack.params, chunk.dev, cfg, chunk.banding), None
+        if not cfg.traditional_mp:
+            if chunk.banding is None:  # the full-depth scan: every level, every row, pad graphs included
+                rows = int(np.size(host.op_mask)) if graph is None else graph.rows * int(host.op_mask.shape[-1])
+                rows3 = cfg.gnn.max_depth * rows
+            else:  # the banded plan: each level covers its span, in every graph
+                rows3 = int(host.op_x.shape[0]) * _level_rows(chunk.banding)
+            fw.set(rows3=rows3, real3=_real3(host.op_mask, host.op_depth))
+        fw.set(graph=how)
+    return raw, None if graph is None else len(chunk.host.op_x)
 
 
 class _PlacedChunk(NamedTuple):
@@ -275,7 +295,7 @@ class _PlacedChunk(NamedTuple):
 
     group: _MergedGroup
     rows: np.ndarray  # each row's skeleton index, on the host
-    graphs: Tuple[MergedGraph, ...]  # on a GPU, per stack: its graph, the rows staged
+    graphs: Tuple[ForwardGraph, ...]  # on a GPU, per stack: its graph, the rows staged
     skel_id: Optional[torch.Tensor] = None  # on the CPU
     a_place: Optional[torch.Tensor] = None
 
@@ -316,7 +336,9 @@ class CostEstimator:
         self._stacks: Dict[Tuple[str, ...], Tuple[StackedEnsembles, ...]] = {}
         # cross-query drain mixes: frozenset of structure keys -> their entry
         self._merged_groups: "OrderedDict[frozenset, _MergedGroup]" = OrderedDict()
-        self._graph_pool = None  # the one memory pool of the merged forward's CUDA graphs
+        # on a GPU, ``estimate``'s graphs: (id of the stacked ensemble, row bucket, layout) -> graph
+        self._estimate_graphs: "OrderedDict[Tuple, ForwardGraph]" = OrderedDict()
+        self._graph_pool = None  # the one memory pool of every CUDA graph (``serve/graphs.py``)
         self._params: Dict[str, object] = {}  # metric -> params on self.device
         self._optimizer = None
         # fault-injection / observation hooks (serve.chaos): objects with
@@ -429,19 +451,68 @@ class CostEstimator:
         sequence of traces (anything with ``.query``/``.cluster``/
         ``.placement``), featurized here in one pass.  The batch moves to the
         device once and is one chunk: one forward per stack, on the
-        full-depth scan plan.  Returns metric -> predictions aligned with the
-        batch (0-d for a single graph).
+        full-depth scan plan; on a GPU a batch runs at its row bucket by
+        replaying a CUDA graph per stack (``_scan_chunk``).  Returns metric ->
+        predictions aligned with the batch (0-d for a single graph).
         """
         metrics = tuple(metrics) if metrics is not None else tuple(self.models)
         with obs.span("estimator.estimate") as sp:
             host = batch if isinstance(batch, JointGraph) else self._featurize(batch)
-            g = graphs_to_device(host, self.device)
-            n = int(g.op_x.shape[0]) if g.op_x.ndim == 3 else 1
+            n = int(np.shape(host.op_x)[0]) if np.ndim(host.op_x) == 3 else 1
             sp.set(n=n)
             self._before("estimate", n)
             stacks = self._stacks_for(metrics)
-            launched = self._launch(stacks, n, None, lambda s, e: _GraphChunk(host, g, None), _graph_forward)
+            launched = self._launch(stacks, n, None, lambda s, e: self._scan_chunk(host, stacks), _graph_forward)
             return self._finish("estimate", lambda: self._collect(stacks, launched), deferred)
+
+    def _scan_chunk(self, host: JointGraph, stacks: Sequence[StackedEnsembles]) -> _GraphChunk:
+        """``estimate``'s one chunk.  On a GPU a batch of ``B`` graphs runs at
+        ``row_bucket(B)`` graphs, padded with zero graphs, by replaying each
+        stack's graph (``_estimate_graph``): the batch is staged straight into
+        the first graph's static inputs in one copy, and the other stacks'
+        graphs copy it from there on the device.  On the CPU, and for a
+        single graph, the batch goes to the device as it is."""
+        if self.device.type != "cuda" or np.ndim(host.op_x) != 3:
+            return _GraphChunk(host, graphs_to_device(host, self.device), None)
+        host = JointGraph(*[np.asarray(x) for x in host])
+        rows = row_bucket(len(host.op_x))
+        graphs = tuple(self._estimate_graph(st, rows, host) for st in stacks)
+        graphs[0].stage(zero_padded(host, rows))
+        for graph in graphs[1:]:
+            graph.buf.copy_(graphs[0].buf)
+        return _GraphChunk(host, None, None, graphs)
+
+    def _estimate_graph(self, stacked: StackedEnsembles, rows: int, host: JointGraph) -> ForwardGraph:
+        """``estimate``'s graph for ``stacked`` at ``rows`` graphs of ``host``'s
+        layout (each field's dtype and per-graph shape), made on first sight
+        and kept in an LRU of ``ESTIMATE_GRAPHS``."""
+        layout = tuple((x.dtype.str, x.shape[1:]) for x in host)
+        key = (id(stacked), rows, layout)
+        graph = self._graph_in(self._estimate_graphs, key, lambda pool: ForwardGraph(
+            stacked, rows, [(x.dtype, (rows, *x.shape[1:])) for x in host], self.device, _scan_forward, pool))
+        self._estimate_graphs.move_to_end(key)
+        while len(self._estimate_graphs) > ESTIMATE_GRAPHS:
+            self._estimate_graphs.popitem(last=False)
+        return graph
+
+    def _graph_in(self, graphs: Dict, key: Tuple, make: Callable) -> ForwardGraph:
+        """``graphs[key]``, made by ``make(pool)`` on first sight
+        (``cache.graph.miss``; its first run captures it into the one pool).
+        A graph is keyed on the id of the stacked ensemble object it reads,
+        and holds that object, so the id stays unique and a new stack never
+        replays an old one's weights; making one drops the graphs in
+        ``graphs`` of stacks the estimator no longer holds."""
+        graph = graphs.get(key)
+        if graph is not None:
+            return graph
+        obs.count("cache.graph.miss")
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        live = {id(st) for stacks in self._stacks.values() for st in stacks}
+        for k in [k for k, g in graphs.items() if id(g.stacked) not in live]:
+            del graphs[k]
+        graph = graphs[key] = make(self._graph_pool)
+        return graph
 
     def proba(self, batch, metric: str) -> np.ndarray:
         """Mean ensemble probability for one classification metric."""
@@ -818,7 +889,7 @@ class CostEstimator:
 
         On a GPU a chunk runs at its row bucket (``graphs.row_bucket``): its
         rows, padded, go to the static inputs of the group's graph for each
-        stack and that bucket, in one copy each.  On the CPU the rows go to
+        stack and that bucket (``_graph_in``), in one copy each.  On the CPU the rows go to
         the device in one copy and each chunk is a slice of them."""
         if group.consts is None:
             skel_id_dev, a_place_dev = nn.arrays_to_device([skel_id, a_place], self.device)
@@ -827,20 +898,22 @@ class CostEstimator:
             rows = skel_id[s:e]
             if group.consts is None:
                 return _PlacedChunk(group, rows, (), skel_id_dev[s:e], a_place_dev[s:e])
-            graphs = tuple(self._merged_graph(group, st, row_bucket(len(rows)), a_place.shape[1:]) for st in stacks)
+            bucket = row_bucket(len(rows))
+            graphs = tuple(self._graph_in(group.graphs, (id(st), bucket), lambda pool, st=st: merged_graph(
+                st, group.consts, bucket, a_place.shape[1:], self.device, pool)) for st in stacks)
             for graph in graphs:
-                graph.stage(rows, a_place[s:e])
+                graph.stage(padded_parts(rows, a_place[s:e], graph.rows))
             return _PlacedChunk(group, rows, graphs)
 
         return prepare
 
     def _placed_forward(self, chunk: _PlacedChunk, i: int, stack: StackedEnsembles, fw):
         """``score_many``'s forward of a chunk over ``stacks[i]``: on a GPU its
-        graph replayed (captured on first sight; ``graphs.MergedGraph``), on
+        graph replayed (captured on first sight; ``graphs.merged_graph``), on
         the CPU ``apply_gnn_merged`` unpadded; only the real rows are read back."""
         group = chunk.group
         if chunk.graphs:
-            raw, how = chunk.graphs[i].run(self._graph_pool)
+            raw, how = chunk.graphs[i].run()
         else:
             how = "eager"
             raw = apply_gnn_merged(
@@ -851,25 +924,6 @@ class CostEstimator:
             fw.set(rows3=int(raw.shape[-1]) * _level_rows(group.banding),
                    real3=int(group.real3[chunk.rows].sum()), graph=how)
         return raw, len(chunk.rows)
-
-    def _merged_graph(self, group: _MergedGroup, stacked: StackedEnsembles, rows: int, place_shape) -> MergedGraph:
-        """The group's graph for ``stacked`` at ``rows``, made on first sight
-        (``cache.graph.miss``; its first run captures it).  A graph is keyed
-        on the stacked ensemble object it reads, so a new stack never replays
-        an old one's weights; making one drops the group's graphs of stacks
-        the estimator no longer holds."""
-        key = (id(stacked), rows)  # the graph holds ``stacked``, so its id stays unique
-        graph = group.graphs.get(key)
-        if graph is not None:
-            return graph
-        obs.count("cache.graph.miss")
-        if self._graph_pool is None:
-            self._graph_pool = torch.cuda.graph_pool_handle()
-        live = {id(st) for stacks in self._stacks.values() for st in stacks}
-        for k in [k for k, g in group.graphs.items() if id(g.stacked) not in live]:
-            del group.graphs[k]
-        graph = group.graphs[key] = MergedGraph(stacked, group.consts, rows, tuple(place_shape), self.device)
-        return graph
 
     def optimize(self, query, cluster, target_metric: str = "latency_p", **kwargs):
         """Cost-based placement search (paper SV): sample -> score -> argopt.

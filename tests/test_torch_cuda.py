@@ -782,6 +782,124 @@ def test_parts_land_in_a_device_buffer(cuda):
         nn.parts_to_device(graphs.padded_parts(sid, ap, 8), "cuda", into=small)
 
 
+def _graph_batch(seed: int, n: int):
+    """``n`` placed synthetic graphs, one host ``JointGraph``."""
+    traces = WorkloadGenerator(seed=seed).corpus(n)
+    return batch_graphs([build_graph(t.query, t.cluster, t.placement) for t in traces])
+
+
+def _first(g, n: int):
+    """The first ``n`` graphs of a host batch."""
+    return type(g)(*[np.asarray(x)[:n] for x in g])
+
+
+@pytest.mark.gpu
+def test_estimate_graph_replay_matches_eager_bitwise(cuda):
+    """``estimate`` of a batch captures its full-depth scan on first sight and replays it after:
+    the replay's output equals the eager forward over the same static inputs bit for bit, a
+    second call's answers equal the first's (eager, then captured) bitwise, each call counts 8
+    ``mp_update`` and 4 ``banked_mlp`` launches (five metrics in one stack, ``max_depth`` 8), and
+    the ``gnn.forward`` span says ``graph="hit"`` with the pad graphs in ``rows3``."""
+    est = CostEstimator(_five_metric_models())
+    g = _graph_batch(40, 300)
+    kernels = ("banked_mlp_slotted", "mp_update")
+    before = [_launches(k) for k in kernels]
+    first = est.estimate(g)
+    assert [_launches(k) - b for k, b in zip(kernels, before)] == [4, 8]
+    before = [_launches(k) for k in kernels]
+    with profile(activities=[ProfilerActivity.CPU]):
+        again = est.estimate(g)
+    assert [_launches(k) - b for k, b in zip(kernels, before)] == [4, 8]
+    assert _same([again], [first])
+    fw = [r.attrs for r in obs.records() if r.name == "gnn.forward"]
+    (graph,) = est._estimate_graphs.values()
+    assert graph.rows == 512 and [a["graph"] for a in fw] == ["hit"]
+    assert fw[0]["rows3"] == 8 * 512 * g.op_mask.shape[-1]
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        want = graph.forward()
+        graph.graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(graph.out, want)
+
+
+@pytest.mark.gpu
+def test_estimate_graph_cache_misses_once_per_stack_and_bucket(cuda, monkeypatch):
+    """One ``cache.graph.miss`` per (stacked ensemble, row bucket) of ``estimate`` on first sight,
+    then only hits: 200, 200, 400 and 4,096 graphs (buckets 256, 256, 512, 4,096), then each again;
+    a single unbatched graph runs eagerly and opens no graph; the LRU keeps the graphs used last
+    and a graph it dropped misses again."""
+    from repro_torch.serve import estimator
+
+    est = CostEstimator(_five_metric_models())
+    pool = _graph_batch(41, 4096)
+    seen = []
+    for n in (200, 200, 400, 4096, 400, 200, 4096):
+        before = _graph_counts()
+        est.estimate(_first(pool, n))
+        seen.append(tuple(a - b for a, b in zip(_graph_counts(), before)))
+    assert seen == [(1, 0), (0, 1), (1, 0), (1, 0), (0, 1), (0, 1), (0, 1)]
+    assert sorted(g.rows for g in est._estimate_graphs.values()) == [256, 512, 4096]
+    before = _graph_counts()
+    single = est.estimate(type(pool)(*[np.asarray(x)[0] for x in pool]))
+    assert _graph_counts() == before and all(np.ndim(v) == 0 for v in single.values())
+    monkeypatch.setattr(estimator, "ESTIMATE_GRAPHS", 2)
+    est.estimate(_first(pool, 400))  # a hit; the LRU drops bucket 256, the least recently used
+    assert sorted(g.rows for g in est._estimate_graphs.values()) == [512, 4096]
+    before = _graph_counts()
+    est.estimate(_first(pool, 200))
+    assert _graph_counts() == (before[0] + 1, before[1])
+    assert sorted(g.rows for g in est._estimate_graphs.values()) == [256, 512]
+
+
+@pytest.mark.gpu
+def test_queued_estimate_calls_on_one_graph_read_their_own_answers(cuda):
+    """Three deferred ``estimate`` calls on one graph (one bucket, other graphs), queued behind a
+    100-ms spin so none has run when the next stages its batch, then finished in order: each
+    equals, bitwise, the same call made alone afterwards.  Stream order keeps each call's inputs
+    behind the earlier replay and its readback ahead of the later one."""
+    est = CostEstimator(_five_metric_models())
+    batches = [_graph_batch(50 + i, 300) for i in range(3)]
+    est.estimate(batches[0])  # captures the graph
+    spin = _spin_cycles(100.0)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(spin)
+    before = _graph_counts()
+    pending = [est.estimate(b, deferred=True) for b in batches]
+    got = [p.result() for p in pending]
+    assert _graph_counts() == (before[0], before[1] + 3)
+    want = [est.estimate(b) for b in batches]
+    assert not _same([want[0]], [want[1]]) and not _same([want[1]], [want[2]])
+    for g_, w_ in zip(got, want):
+        assert _same([g_], [w_])
+
+
+@pytest.mark.gpu
+def test_a_swapped_stacked_ensemble_is_never_replayed_by_an_old_estimate_graph(cuda):
+    """Replacing the estimator's stacked ensemble (every weight x 1.25) changes ``estimate``'s
+    answers: the new stack misses and captures its own graph (the old one is dropped), and the
+    answers equal, bitwise, those of a new estimator built over the scaled weights."""
+    models = _five_metric_models()
+    scaled = {m: (nn.tree_map(lambda t: t * 1.25, p), cfg) for m, (p, cfg) in models.items()}
+    est, fresh = CostEstimator(models), CostEstimator(scaled)
+    g = _graph_batch(42, 300)
+    metrics = tuple(models)
+    est.estimate(g)
+    old = est.estimate(g)
+    (st,) = est._stacks_for(metrics)
+    est._stacks[metrics] = (st._replace(params=nn.tree_map(lambda t: t * 1.25, st.params)),)
+    before = _graph_counts()
+    new = est.estimate(g)
+    assert _graph_counts() == (before[0] + 1, before[1])
+    again = est.estimate(g)
+    assert _graph_counts() == (before[0] + 1, before[1] + 1)
+    (graph,) = est._estimate_graphs.values()
+    assert graph.stacked is est._stacks[metrics][0]
+    assert not _same([new], [old])
+    want = fresh.estimate(g)
+    assert _same([new], [want]) and _same([again], [want])
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize(
     "B,T,D,h0_slice,near_one",

@@ -1,10 +1,14 @@
-"""The merged forward's split and row buckets (``core/gnn.py``, ``serve/graphs.py``) on the CPU.
+"""The merged forward's split and the row buckets of the graphed forwards (``core/gnn.py``,
+``serve/graphs.py``) on the CPU.
 
 On a GPU, ``score_many`` replays each chunk's merged forward from a CUDA graph at the chunk's row
-bucket, over the stack's constants computed once (the card tests in ``test_torch_cuda.py`` hold the
-replay).  Here, on a DSPBench-like and a synthetic structure mix: the constants computed once give
+bucket, over the stack's constants computed once, and ``estimate`` replays a batch's full-depth
+scan at the batch's row bucket (the card tests in ``test_torch_cuda.py`` hold the replays).  Here,
+on a DSPBench-like and a synthetic structure mix: the constants computed once give
 ``apply_gnn_merged``'s outputs bitwise on every chunk, the forward over them copies nothing from the
-host, and a chunk padded to its bucket gives its real rows' outputs unchanged.  No JAX.
+host, and a chunk padded to its bucket gives its real rows' outputs unchanged; a graph batch padded
+with zero graphs to its bucket gives its real graphs' outputs unchanged; and on the CPU neither
+entry opens a graph.  No JAX.
 """
 
 import numpy as np
@@ -15,7 +19,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch import nn, obs
 from repro_torch.core import gnn, graph
-from repro_torch.core.model import CostModelConfig, init_cost_model
+from repro_torch.core.model import CostModelConfig, forward_ensemble, init_cost_model
 from repro_torch.dsps import WorkloadGenerator
 from repro_torch.dsps.benchmarks import BENCHMARKS, sample_benchmark_query
 from repro_torch.placement.enumerate import sample_assignment_matrix
@@ -127,6 +131,52 @@ def test_cpu_score_many_runs_eager():
     assert [a["graph"] for a in fw] == ["eager"]
     assert fw[0]["rows3"] == sum(len(a) for _, _, a in reqs) * levels
     assert {k: v for k, v in obs.counters().items() if k.startswith("cache.graph.")} == before
+
+
+def _graph_batch(b: int) -> graph.JointGraph:
+    """``b`` placed synthetic graphs: 24 distinct ones, repeated."""
+    traces = WorkloadGenerator(seed=31).corpus(24)
+    one = [graph.build_graph(t.query, t.cluster, t.placement) for t in traces]
+    return graph.batch_graphs([one[i % len(one)] for i in range(b)])
+
+
+@pytest.mark.parametrize("b", [1, 255, 256, 257])
+def test_a_graph_batch_padded_to_its_bucket_keeps_its_real_graphs(b):
+    """``estimate``'s pad on a GPU: a batch of ``b`` graphs padded with zero graphs (no operator,
+    host, edge or placement; ``graphs.zero_padded``) to ``row_bucket(b)`` gives finite outputs, and
+    its first ``b`` columns equal the unpadded batch's full-depth scan, on both routes."""
+    host = _graph_batch(b)
+    rows = graphs.row_bucket(b)
+    padded = graph.JointGraph(*[np.concatenate(p) for p in graphs.zero_padded(host, rows)])
+    assert all(x.shape == (rows,) + y.shape[1:] and x.dtype == y.dtype for x, y in zip(padded, host))
+    assert not any(x[b:].any() for x in padded)
+    for use_pallas in (False, True):
+        params, cfg = _params(use_pallas=use_pallas)
+        mcfg = CostModelConfig(metric="latency_p", gnn=cfg, n_ensemble=2)
+        want = forward_ensemble(params, JointGraphT(host), mcfg)
+        got = forward_ensemble(params, JointGraphT(padded), mcfg)
+        assert got.shape == (2, rows) and torch.isfinite(got).all()
+        torch.testing.assert_close(got[:, :b], want, rtol=1e-5, atol=1e-6)
+
+
+def test_cpu_estimate_runs_eager():
+    """On the CPU ``estimate`` runs the full-depth scan eagerly on the batch as it is: its
+    ``gnn.forward`` span says ``graph="eager"`` and counts the real graphs' rows only, the
+    estimator opens no graph and no pool, and the graph counters do not move."""
+    params, cfg = _params()
+    est = CostEstimator({"latency_p": (params, CostModelConfig(metric="latency_p", gnn=cfg, n_ensemble=2))},
+                        device="cpu")
+    host = _graph_batch(40)
+    before = {k: v for k, v in obs.counters().items() if k.startswith("cache.graph.")}
+    first = est.estimate(host)
+    with profile(activities=[ProfilerActivity.CPU]):
+        again = est.estimate(host)
+    fw = [r.attrs for r in obs.records() if r.name == "gnn.forward"]
+    assert [a["graph"] for a in fw] == ["eager"]
+    assert fw[0]["rows3"] == cfg.max_depth * host.op_mask.size
+    assert not est._estimate_graphs and est._graph_pool is None
+    assert {k: v for k, v in obs.counters().items() if k.startswith("cache.graph.")} == before
+    assert first["latency_p"].shape == (40,) and np.array_equal(first["latency_p"], again["latency_p"])
 
 
 @pytest.mark.parametrize("max_batch,buckets", [(1024, [256, 512, 768, 1024]), (1000, [256, 512, 768, 1024]),

@@ -175,7 +175,7 @@ def test_stage3_rows_equal_a_count_by_hand(setup):
     depth = est.config("latency_p").gnn.max_depth
     _, records = _profiled(lambda: (est.estimate(g), est.estimate_many([g])))
     scan, banded = [r.attrs for r in records if r.name == "gnn.forward"]
-    assert scan == {"rows3": depth * 2 * MAX_OPS, "real3": real}
+    assert scan == {"rows3": depth * 2 * MAX_OPS, "real3": real, "graph": "eager"}
     assert banded["real3"] == real and real <= banded["rows3"] < scan["rows3"]
 
 
